@@ -1,10 +1,10 @@
-"""crlot-tpu: a TPU-native DSP framework (JAX/XLA/Pallas).
+"""An accelerator DSP framework in JAX, run on NVIDIA GPUs.
 
 Built from scratch with the capabilities of crlotwhite/crlot-dsp (C++17
 audio-DSP toolkit): framing, windows with COLA normalization, plan-based FFT,
-overlap-add reconstruction, polyphase resampling, WAV I/O — designed TPU-first
-(batched array programs, Pallas kernels for the memory-bound loops, shard_map
-channel/time-block parallelism with halo exchange). See SURVEY.md.
+overlap-add reconstruction, polyphase resampling, WAV I/O — as batched array
+programs, with shard_map channel/time-block parallelism and halo exchange.
+See SURVEY.md.
 """
 
 from .core.types import (

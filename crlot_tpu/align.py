@@ -5,7 +5,7 @@ recurrence over steps {(1,0), (0,1), (1,1)}:
 
     D[i, j] = C[i, j] + min(D[i-1, j], D[i, j-1], D[i-1, j-1])
 
-TPU-first formulation: the in-row dependency D[i, j-1] makes a naive row
+Parallel formulation: the in-row dependency D[i, j-1] makes a naive row
 sweep sequential in j, but the recurrence d[j] = min(a[j], d[j-1] + c[j])
 (with a[j] = c[j] + min(up[j], up-left[j]) folding in the previous row) is
 a MIN-PLUS LINEAR RECURRENCE: the update functions f_j(x) = min(a_j,
@@ -55,7 +55,7 @@ def dtw_cost(
 ) -> jnp.ndarray:
     """Pairwise frame-distance matrix `[N, M]` between X `[N, d]` and
     Y `[M, d]`. `euclidean` expands |x-y|^2 = |x|^2 + |y|^2 - 2<x, y>
-    so the cross term is one MXU matmul (f32 cancellation leaves an
+    so the cross term is one matmul (f32 cancellation leaves an
     ~1e-3 absolute floor on near-zero distances — irrelevant at DTW's
     scale); `cosine` is 1 - normalized dot.
 
@@ -67,7 +67,7 @@ def dtw_cost(
         sq = (
             jnp.sum(jnp.square(x), axis=1)[:, None]
             + jnp.sum(jnp.square(y), axis=1)[None, :]
-            - 2.0 * (x @ y.T)
+            - 2.0 * jnp.matmul(x, y.T, precision=jax.lax.Precision.HIGHEST)
         )
         return jnp.sqrt(jnp.maximum(sq, 0.0))
     if metric == "cosine":
@@ -75,7 +75,7 @@ def dtw_cost(
             jnp.linalg.norm(x, axis=1, keepdims=True), 1e-12)
         yn = y / jnp.maximum(
             jnp.linalg.norm(y, axis=1, keepdims=True), 1e-12)
-        return 1.0 - xn @ yn.T
+        return 1.0 - jnp.matmul(xn, yn.T, precision=jax.lax.Precision.HIGHEST)
     raise ValueError(f"unknown metric {metric!r}")
 
 

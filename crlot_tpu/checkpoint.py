@@ -1,7 +1,7 @@
 """Stream-state checkpoint/resume.
 
 The reference is a stateless library (SURVEY.md §5: its only persisted
-artifact is the perf baseline file); for multi-hour streaming jobs the TPU
+artifact is the perf baseline file); for multi-hour streaming jobs this
 build checkpoints the streaming pipeline state — (ring contents, cursors,
 frame counter) as a pytree — so a killed job resumes mid-stream.
 

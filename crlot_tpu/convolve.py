@@ -1,21 +1,17 @@
-"""Exact 1-D FIR convolution as hop-block Toeplitz MXU matmuls.
+"""Exact 1-D FIR convolution as hop-block Toeplitz matmuls.
 
-TPU-native direct convolution: XLA's conv lowering falls off the MXU fast
-path at DSP-typical shapes (measured 180x slow for the composed round-trip,
-docs/DESIGN.md), and FFT overlap-add needs length padding and complex
-intermediates. Instead the linear convolution is blocked like
+Direct convolution without `lax.conv` or FFT overlap-add (which needs length
+padding and complex intermediates): the linear convolution is blocked like
 `fft.matmul_backend.roundtrip_composed_blocked` (shared runtime:
 `hopblock_apply`): each output hop-block is one row of a
 [B, M*hop] x [M*hop, hop] matmul whose kernel is the taps laid out on the
-Toeplitz diagonals — exact (no circular wrap), lane-aligned, and entirely
-on the MXU. MACs/sample = ceil((L-1)/hop + 1)*hop ~= L + hop for L taps.
+Toeplitz diagonals — exact (no circular wrap) and entirely dense matmuls.
+MACs/sample = ceil((L-1)/hop + 1)*hop ~= L + hop for L taps.
 
 Modes follow numpy.convolve: full (T+L-1), same (max(T, L), centered),
 valid (max-min+1) — including the L > len(x) orientations.
 
-Matmul precision follows the module-wide default of
-`fft.matmul_backend.set_precision` (HIGHEST unless overridden), like every
-other MXU constant-bank op in the package.
+Matmuls run at `fft.matmul_backend.PRECISION` (true f32).
 """
 
 from __future__ import annotations

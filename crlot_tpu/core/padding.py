@@ -58,7 +58,7 @@ def pad_signal(
         return jnp.pad(x, widths, mode="constant", constant_values=value)
     if n == 0:
         raise ValueError(f"cannot {mode.value}-pad an empty signal")
-    # Gathers over the whole signal are very slow on TPU; build only the pad
+    # Gathers over the whole signal are slow; build only the pad
     # EDGES and concat them around the untouched interior. The common
     # single-reflection case (pad < n) is a pure flip/slice; larger pads and
     # EDGE's degenerate cases fall back to a small gather over the pad only.

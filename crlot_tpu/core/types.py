@@ -1,4 +1,4 @@
-"""Core config types for crlot-tpu.
+"""Core config types.
 
 Frozen dataclasses mirroring the reference's POD config structs
 (reference: dsp/ola/OLAAccumulator.h:15-29 `OLAConfig`,
@@ -77,22 +77,17 @@ class FftDomain(enum.Enum):
 
 
 class FftPrecision(enum.Enum):
-    """Matmul accumulation tier for the DFT bases on TPU.
+    """Matmul accumulation tier for the DFT and Toeplitz bases; on the GPU
+    each maps to one explicit dot algorithm (fft.dispatch.to_lax_precision).
 
-    HIGHEST ~= true f32 (six bf16 passes): ~141 dB round-trip SNR.
-    HIGH = three bf16 passes: ~95 dB round-trip SNR at ~8x the throughput
-    (measured on v5e) — still 35 dB above the reference's 60 dB gate and
-    comparable to 16-bit audio dynamic range.
-    INT8X2 = three int8 passes per matmul on the MXU's double-rate int8
-    path (two-limb 14-bit operand split, exact int32 accumulation,
-    fft/int8_backend.py): ~78 dB round-trip SNR at ~2x the HIGH tier's
-    MXU throughput. Applies on the tiled matmul-DFT path (N % 256 == 0,
-    N <= 4096); other lowerings treat it as HIGH.
+    HIGHEST = true f32 (F32_F32_F32).
+    HIGH = three bf16 passes with f32 accumulation (BF16_BF16_F32_X3),
+    about 113 dB identity round-trip SNR on the GPU, above 16-bit audio's
+    ~96 dB and 53 dB above the reference's 60 dB gate.
     """
 
     HIGHEST = "highest"
     HIGH = "high"
-    INT8X2 = "int8x2"
 
 
 class FftBackend(enum.Enum):
@@ -101,8 +96,10 @@ class FftBackend(enum.Enum):
     dsp/fft/BUILD.bazel:4-7; here backend choice is a config enum per
     SURVEY.md §5 'Config / flag system').
 
-    XLA = jnp.fft (any N, any device). MATMUL = DFT as an MXU matrix product
-    (TPU-fast for N <= 4096). AUTO picks MATMUL on TPU when N qualifies.
+    XLA = jnp.fft (any N, any device; cuFFT on the GPU). MATMUL = DFT as
+    matrix products (N <= 4096; Cooley-Tukey matmuls above), and the
+    blocked hop-block Toeplitz round trip. AUTO: see
+    `fft.dispatch.blocked_route`.
     """
 
     AUTO = "auto"
@@ -155,8 +152,9 @@ class FftPlanDesc:
       - REAL domain requires even nfft,
       - in_place is unsupported,
       - batch >= 1 and strides >= 1.
-    The reference caps batch at 16 (fft_api.h:47); on TPU batching is the
-    whole point, so the cap is lifted (max_batch_size() reports it).
+    The reference caps batch at 16 (fft_api.h:47); on an accelerator
+    batching is the whole point, so the cap is lifted (max_batch_size()
+    reports it).
     """
 
     domain: FftDomain
@@ -253,10 +251,6 @@ class StftConfig:
     eps: float = 1e-8
     fft_backend: FftBackend = FftBackend.AUTO
     fft_precision: FftPrecision = FftPrecision.HIGH
-    # Opt-in single-kernel round-trip (fft/pallas_rt.py): framing + folded
-    # DFT + inverse fused in one Pallas pass. Applies only where
-    # fused_rt_supported() holds and the identity round-trip is requested.
-    fused_roundtrip: bool = False
 
     def __post_init__(self) -> None:
         if self.frame_size <= 0 or self.frame_size % 2 != 0:

@@ -1,15 +1,16 @@
 """Device mesh construction for channel x time-block sharding.
 
 The reference is single-process (SURVEY.md §2.9: parallelism = SIMD only);
-this module is the "distributed communication backend" the TPU build adds as
+this module is the "distributed communication backend" this build adds as
 a first-class component (SURVEY.md §5): a 2-D logical mesh
 
     ('channel', 'time')
 
 where channels are embarrassingly parallel (the reference keeps per-channel
 rings, OLAAccumulator.cc:26-28) and the time axis carries the frame-overlap
-halo exchange over ICI. On multi-host slices, lay 'time' over ICI-adjacent
-devices so halos ride ICI and only block-boundary edges cross DCN.
+halo exchange. The cards of one host reach each other all to all over
+NVLink at one rate, so the mesh follows the algorithm alone: no device
+order is better than another.
 """
 
 from __future__ import annotations

@@ -1,15 +1,15 @@
-"""Multi-host setup: (hosts x chips) meshes over DCN + ICI.
+"""Multi-process setup: (processes x local devices) meshes.
 
-SURVEY.md §5 'Distributed communication backend': mesh = (dcn: hosts,
-ici: chips). On a multi-host slice, each host runs the same program under
-`jax.distributed`; `global_mesh()` lays the TIME axis so consecutive time
-blocks sit on ICI-adjacent chips of the same host and only one block edge
-per host crosses DCN — halos then ride ICI, and the per-host DCN traffic per
-pipeline step is a single (frame - hop)-sample boundary exchange in each
-direction (BASELINE.json: >= 80% weak scaling on >= 2 hosts).
+SURVEY.md §5 'Distributed communication backend'. Each process runs the
+same program under `jax.distributed`; `global_mesh()` lays the TIME axis so
+consecutive time blocks sit on devices of the same process and only one
+block edge per process crosses the process boundary, so the cross-process
+traffic per pipeline step is a single (frame - hop)-sample boundary
+exchange in each direction.
 
-This module is exercised single-host in CI (process_count == 1 collapses to
-the plain mesh); on a real slice call `initialize()` first on every host.
+This module is exercised single-process in CI (process_count == 1 collapses
+to the plain mesh); with several processes call `initialize()` first in
+every one, with an explicit coordinator address, process count and id.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ def initialize(
     if jax.distributed.is_initialized():
         return  # already initialized
     if coordinator_address is None:
-        return  # single-host run
+        return  # single-process run
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
@@ -48,11 +48,12 @@ def initialize(
 
 def global_mesh(channel: int = 1) -> Mesh:
     """(channel, time) mesh over ALL processes' devices, time-major within
-    each host so halo ppermutes are ICI-local except at host boundaries.
+    each process so halo ppermutes stay inside a process except at process
+    boundaries.
 
     jax.devices() orders devices process-major already; reshaping
-    [hosts, devices_per_host] -> channel x time keeps each host's devices
-    contiguous along the time axis.
+    [processes, devices_per_process] -> channel x time keeps each process's
+    devices contiguous along the time axis.
     """
     devs = jax.devices()
     n = len(devs)

@@ -158,7 +158,7 @@ class ShardedStreamer:
     (`state()` / `load_state()`), so a multi-hour stream can checkpoint
     mid-flight and resume in a fresh process with BIT-IDENTICAL output
     (the reference has no streaming checkpoint at all; SURVEY.md §5
-    'Checkpoint / resume' makes it a TPU-build requirement).
+    'Checkpoint / resume' makes it a requirement here).
     """
 
     def __init__(

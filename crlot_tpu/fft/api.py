@@ -6,7 +6,8 @@ A "plan" here is a thin object over jitted closures specialized on
 reference. Validation semantics match the kissfft adapter
 (kissfft_adapter.cc:14-38): REAL domain needs even nfft, in_place raises,
 strides >= 1. The reference's batch cap of 16 (fft_api.h:47) is lifted —
-batching is free on TPU — and `max_batch_size()` reports the lifted cap.
+batching is what the device is for — and `max_batch_size()` reports the
+lifted cap.
 
 Shapes: natural inputs are `[..., nfft]` (real) / `[..., nfft]` (complex);
 `forward`/`inverse` also accept the reference's flat strided layout via the
@@ -35,7 +36,7 @@ class FftPlan:
         return True
 
     def max_batch_size(self) -> int:
-        return 1 << 30  # effectively unbounded on TPU (reference caps at 16)
+        return 1 << 30  # effectively unbounded (the reference caps at 16)
 
     @property
     def num_bins(self) -> int:
@@ -46,8 +47,8 @@ class FftPlan:
     def forward(self, x: jnp.ndarray) -> jnp.ndarray:
         """Real -> complex, [..., nfft] -> [..., nfft//2+1].
 
-        Respects desc.backend: AUTO picks the MXU matmul-DFT on TPU for
-        qualifying sizes (fft.dispatch), XLA otherwise; scrub applies first.
+        Respects desc.backend (fft.dispatch: AUTO is jnp.fft, MATMUL the
+        DFT-as-matmul bases); scrub applies first.
         """
         self._require(FftDomain.REAL)
         self._check_last(x, self._nfft)

@@ -1,4 +1,4 @@
-"""Cooley-Tukey matmul FFT: large-N rFFT/irFFT as two MXU matmul stages.
+"""Cooley-Tukey matmul FFT: large-N rFFT/irFFT as two matmul stages.
 
 The direct DFT-as-matmul (matmul_backend.py) needs an [N, N+2] basis — fine
 to N=4096, quadratic beyond. This backend factors the transform: a real rFFT
@@ -6,9 +6,9 @@ of length N packs even/odd samples into a complex signal of length M = N/2,
 runs a two-stage Cooley-Tukey FFT (M = M1*M2: DFT_M1 matmul, twiddle
 multiply, DFT_M2 matmul), and unpacks with the standard half-size real-FFT
 post-twiddle. FLOPs drop from O(N^2) to O(N*(M1+M2)) per frame with both
-stages shaped for the MXU (M1, M2 chosen near sqrt(M), powers of two).
+stages shaped as dense matmuls (M1, M2 chosen near sqrt(M), powers of two).
 
-Complex arithmetic is decomposed into real matmuls (TPU MXUs are real);
+Complex arithmetic is decomposed into real matmuls;
 bases are designed in float64 and cast to float32; matmuls run at
 Precision.HIGHEST. Verified against numpy to f32 round-off in tests.
 

@@ -1,13 +1,13 @@
-"""DFT-as-matmul backend: rFFT/irFFT as MXU matrix products.
+"""DFT-as-matmul backend: rFFT/irFFT as dense matrix products.
 
-TPUs have no FFT hardware; XLA lowers fft ops to generic loops that leave the
-MXU idle. For the frame sizes this pipeline sweeps (256..16384, typically
-1024), the O(N^2) real DFT as a single [batch, N] x [N, 2K] matmul runs at
-MXU speed and beats the O(N log N) lowering by a wide margin — the classic
-TPU formulation ("use the matrix unit for everything that can be a matmul").
+The O(N^2) real DFT as a single [batch, N] x [N, 2K] matmul, its
+symmetry-folded half-size forms, and the blocked hop-block Toeplitz round
+trip that folds the whole frame -> DFT -> response -> iDFT -> OLA chain into
+one kernel (`roundtrip_composed_blocked`). `fft.dispatch` decides where
+each runs; on a GPU, AUTO takes only the blocked round trip.
 
 Numerics: basis matrices are built in float64 and cast to float32; matmuls
-run at Precision.HIGHEST (bf16x6 passes ~ f32 accuracy). Round-trip RMSE is
+run at the caller's dot algorithm (true f32 by default). Round-trip RMSE is
 checked by tests against the XLA backend within the reference's 1e-5 hard
 gate (tests/fft_test.cc:76-82 tiering).
 
@@ -18,7 +18,6 @@ N=16384) — this backend is used for N <= MAX_MATMUL_NFFT, XLA FFT otherwise
 
 from __future__ import annotations
 
-import os
 from functools import lru_cache
 
 import jax
@@ -27,20 +26,26 @@ import numpy as np
 
 MAX_MATMUL_NFFT = 4096
 
-# Default matmul accumulation tier when callers pass precision=None:
-# HIGHEST ~= f32 (six bf16 passes, ~141 dB SNR), HIGH = three passes
-# (~8x faster, ~95 dB SNR). Pipelines pass their config's tier explicitly.
-PRECISION = jax.lax.Precision.HIGHEST
-
-
-def set_precision(p) -> None:
-    """Module-wide default matmul precision for the DFT bases."""
-    global PRECISION
-    PRECISION = p
+# Dot algorithm when callers pass precision=None: true f32 (the HIGHEST
+# tier of fft.dispatch.to_lax_precision). Pipelines pass their config's
+# tier explicitly.
+PRECISION = jax.lax.DotAlgorithmPreset.F32_F32_F32
 
 
 def _prec(precision):
     return PRECISION if precision is None else precision
+
+
+def _dot(lhs: jnp.ndarray, rhs, precision=None) -> jnp.ndarray:
+    """lhs [..., K] @ rhs [K, M] at `precision`. A product with one lhs row
+    takes F32_F32_F32 in place of BF16_BF16_F32_X3: the GPU runs that
+    matrix-vector product as a single bf16 pass (error 4.5e-3 against
+    1.6e-5 with two rows or more, measured on an H100)."""
+    prec = _prec(precision)
+    if (prec == jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3
+            and lhs.size == lhs.shape[-1]):
+        prec = jax.lax.DotAlgorithmPreset.F32_F32_F32
+    return jnp.dot(lhs, rhs, precision=prec)
 
 
 @lru_cache(maxsize=None)
@@ -69,11 +74,9 @@ def _inverse_basis(nfft: int) -> np.ndarray:
 
 
 def rfft_matmul(x: jnp.ndarray, nfft: int, precision=None) -> jnp.ndarray:
-    """Real [..., nfft] -> complex64 [..., nfft//2+1] via one MXU matmul."""
+    """Real [..., nfft] -> complex64 [..., nfft//2+1] via one matmul."""
     basis = jnp.asarray(_forward_basis(nfft))
-    flat = jnp.dot(
-        x.astype(jnp.float32), basis, precision=_prec(precision)
-    )
+    flat = _dot(x.astype(jnp.float32), basis, precision)
     kk = nfft // 2 + 1
     return jax.lax.complex(flat[..., :kk], flat[..., kk:])
 
@@ -82,7 +85,7 @@ def irfft_matmul(spec: jnp.ndarray, nfft: int, precision=None) -> jnp.ndarray:
     """Complex [..., nfft//2+1] -> real [..., nfft] (includes 1/N)."""
     basis = jnp.asarray(_inverse_basis(nfft))
     ri = jnp.concatenate([spec.real, spec.imag], axis=-1).astype(jnp.float32)
-    return jnp.dot(ri, basis, precision=_prec(precision))
+    return _dot(ri, basis, precision)
 
 
 @lru_cache(maxsize=None)
@@ -104,9 +107,7 @@ def rfft_windowed_matmul(
     basis = jnp.asarray(
         _windowed_forward_basis(nfft, np.asarray(window_f64, np.float64).tobytes())
     )
-    flat = jnp.dot(
-        x.astype(jnp.float32), basis, precision=_prec(precision)
-    )
+    flat = _dot(x.astype(jnp.float32), basis, precision)
     kk = nfft // 2 + 1
     return jax.lax.complex(flat[..., :kk], flat[..., kk:])
 
@@ -177,15 +178,15 @@ def rfft_folded_packed(
     x: jnp.ndarray, nfft: int, window_f32=None, precision=None
 ):
     """rfft(x [* window]) -> (Re [..., K], Im [..., K]) via two half-size
-    MXU matmuls (half the FLOPs of the direct [N, 2K] basis)."""
+    matmuls (half the FLOPs of the direct [N, 2K] basis)."""
     cb, sb = _folded_forward_consts(nfft)
     y = x.astype(jnp.float32)
     if window_f32 is not None:
         y = y * window_f32
     even, odd = _fold_frames(y, nfft)
-    re = jnp.dot(even, jnp.asarray(cb), precision=_prec(precision))
+    re = _dot(even, jnp.asarray(cb), precision)
     if sb.shape[0]:
-        im = jnp.dot(odd, jnp.asarray(sb), precision=_prec(precision))
+        im = _dot(odd, jnp.asarray(sb), precision)
     else:
         im = jnp.zeros(re.shape, re.dtype)
     return re, im
@@ -197,15 +198,10 @@ def irfft_folded_parts(
     """(Re, Im) [..., K] -> real [..., N] (includes 1/N) via two half-size
     matmuls plus an elementwise unfold."""
     cinv, sinv = _folded_inverse_consts(nfft)
-    a = jnp.dot(
-        re.astype(jnp.float32), jnp.asarray(cinv), precision=_prec(precision)
-    )
+    a = _dot(re.astype(jnp.float32), jnp.asarray(cinv), precision)
     h = nfft // 2
     if sinv.shape[1]:
-        b = jnp.dot(
-            im.astype(jnp.float32), jnp.asarray(sinv),
-            precision=_prec(precision),
-        )
+        b = _dot(im.astype(jnp.float32), jnp.asarray(sinv), precision)
         mid = a[..., 1:h]
         return jnp.concatenate(
             [
@@ -221,14 +217,13 @@ def irfft_folded_parts(
 
 @lru_cache(maxsize=None)
 def _tiled_consts(nfft: int):
-    """Lane-aligned cores of the folded bases + their rank-1 borders.
+    """Power-of-two cores of the folded bases + their rank-1 borders.
 
-    The folded bases are [h+1, h+1] (h = nfft//2); on TPU a (h+1)-sized
-    matmul dim pads to the next 128 multiple, inflating MXU block count by
-    (ceil((h+1)/128)/(h/128))^2 — 1.56x at h=512. The h-th row/column of
+    The folded bases are [h+1, h+1] (h = nfft//2); an (h+1)-sized matmul
+    dim pads to the next tile multiple. The h-th row/column of
     each basis is an EXACT alternating-sign vector (cos(pi*n) = (-1)^n), so
-    every matmul splits into a clean [h, h] MXU core plus a rank-1 border
-    handled as one fused VPU outer-product/reduction:
+    every matmul splits into a clean [h, h] core plus a rank-1 border
+    handled as one fused elementwise outer-product/reduction:
 
       Re[:, :h] = e[:, :h] @ C[:h, :h] + e[:, h] (x) (-1)^k
       Re[:, h]  = sum_n e[:, n] (-1)^n + e[:, h] (-1)^h        (matvec)
@@ -284,7 +279,7 @@ def rfft_folded_tiled_parts(
     x: jnp.ndarray, nfft: int, window_f32=None, precision=None
 ):
     """rfft(x [* w]) -> (re512 [..., h], re_nyq [..., 1], im_eff [..., h-1])
-    — the packed-real spectrum in its lane-aligned tiled layout (bins
+    — the packed-real spectrum in its tiled layout (bins
     k = 0..h-1, the Nyquist bin, and Im k = 1..h-1; Im[0] = Im[h] = 0)."""
     c512, s_eff, _, _, _, alt, sign_h = _tiled_consts(nfft)
     h = nfft // 2
@@ -298,11 +293,11 @@ def rfft_folded_tiled_parts(
     o = head - tail
     altj = jnp.asarray(alt)
     re512 = (
-        jnp.dot(e512, jnp.asarray(c512), precision=_prec(precision))
+        _dot(e512, jnp.asarray(c512), precision)
         + e_n * altj
     )
     re_nyq = jnp.sum(e512 * altj, axis=-1, keepdims=True) + e_n * sign_h
-    im_eff = jnp.dot(o, jnp.asarray(s_eff), precision=_prec(precision))
+    im_eff = _dot(o, jnp.asarray(s_eff), precision)
     return re512, re_nyq, im_eff
 
 
@@ -327,14 +322,14 @@ def irfft_folded_tiled_parts(
     h = nfft // 2
     altj = jnp.asarray(alt)
     a512 = (
-        jnp.dot(re512, jnp.asarray(ci512), precision=_prec(precision))
+        _dot(re512, jnp.asarray(ci512), precision)
         + (re_nyq * g_nyq) * (altj / nfft)
     )
     a_nyq = (
         jnp.sum(re512 * jnp.asarray(cvec), axis=-1, keepdims=True)
         + re_nyq * (g_nyq * sign_h / nfft)
     )
-    b = jnp.dot(im_eff, jnp.asarray(si_eff), precision=_prec(precision))
+    b = _dot(im_eff, jnp.asarray(si_eff), precision)
     mid = a512[..., 1:h]
     return jnp.concatenate(
         [a512[..., :1], mid + b, a_nyq, jnp.flip(mid - b, axis=-1)],
@@ -352,9 +347,8 @@ def roundtrip_folded_tiled(
 ) -> jnp.ndarray:
     """irfft(rfft(frames * w) [* g]) with every matmul dim a multiple of
     128: the four folded half-bases shed their (h+1)-th row/column into
-    exact alternating-sign rank-1 VPU corrections (see _tiled_consts),
-    cutting MXU block count 36% at N=1024 vs roundtrip_folded_matmul
-    (5x5 -> 4x4 tiles of 128 per matmul) with identical-tier numerics.
+    exact alternating-sign rank-1 corrections (see _tiled_consts), so
+    every matmul dim is a power of two, with identical-tier numerics.
     A real per-bin spectral gain g[K] folds into the inverse constants
     (per_bin_gains_f64) — fixed spectral EQ runs at identity cost."""
     w = jnp.asarray(np.asarray(analysis_window_f64, np.float32))
@@ -394,7 +388,7 @@ def _tiled_to_complex(re512, re_nyq, im_eff) -> jnp.ndarray:
 def rfft_tiled(
     x: jnp.ndarray, nfft: int, window_f64=None, precision=None
 ) -> jnp.ndarray:
-    """Real [..., nfft] -> complex64 [..., K] via the lane-aligned tiled
+    """Real [..., nfft] -> complex64 [..., K] via the tiled
     cores (requires tiled_supported(nfft)); window optional (f64 design)."""
     w = (
         None
@@ -454,7 +448,7 @@ def roundtrip_folded_matmul(
 ) -> jnp.ndarray:
     """irfft(rfft(frames * w)) with all four matmuls at half contraction
     size and no complex dtype: Re/Im stay as separate packed-real arrays
-    between the forward and inverse half-bases. Exactly half the MXU FLOPs
+    between the forward and inverse half-bases. Exactly half the FLOPs
     of roundtrip_packed_matmul."""
     w = jnp.asarray(np.asarray(analysis_window_f64, np.float32))
     re, im = rfft_folded_packed(frames, nfft, w, precision)
@@ -477,7 +471,7 @@ def _composed_roundtrip_basis(
     is a LINEAR map per frame, so for a FIXED response curve g [K]
     (real gains OR complex — any per-frame LTI filter: EQ, FIR response,
     fractional delay, allpass) it composes into one matrix on the host
-    (exactly, in f64) and runs as ONE MXU matmul: the same N^2 MAC count
+    (exactly, in f64) and runs as ONE matmul: the same N^2 MAC count
     as the four folded half-matmuls (4 x (N/2)^2), but zero spectrum
     intermediates in HBM, no fold/unfold elementwise passes, and a
     single launch. Since irfft(rfft(y) * g) is CIRCULAR convolution with
@@ -523,9 +517,7 @@ def roundtrip_composed_matmul(
             np.ascontiguousarray(per_bin_response, np.complex128).tobytes(),
         )
     )
-    return jnp.dot(
-        frames.astype(jnp.float32), m, precision=_prec(precision)
-    )
+    return _dot(frames.astype(jnp.float32), m, precision)
 
 
 @lru_cache(maxsize=None)
@@ -566,20 +558,14 @@ def _composed_block_kernel(
 
 def blocked_group_for(nfft: int, hop: int):
     """Group size G for the blocked hop-block Toeplitz kernel, or None when
-    no valid G exists (the support gate). Constraints:
+    (N, hop) cannot run blocked (the support gate): hop must divide N with
+    R = N/hop >= 2, and N <= MAX_MATMUL_NFFT.
 
-    * `(G * hop) % 128 == 0`: the kernel's [*, G*hop] output tile must be
-      TPU lane-aligned (hop >= 128 alone satisfied this before r5; smaller
-      hops — e.g. the N=256/hop=64 sweep cell, r4 verdict item 5 — become
-      supportable by folding MORE output blocks per matmul row).
-    * `G | 2*(R-1)` (R = nfft/hop): makes the kernel height
-      L_G = (2R + G - 2)*hop an exact multiple of G*hop, so the kernel
-      needs no zero-row padding and the look-ahead context equals the
-      (N - hop) halo the mesh formulation already exchanges.
-
-    hop % 128 == 0 always yields G=2 (the r3/r4 measured-fastest choice;
-    docs/DESIGN.md), so existing configs keep their exact kernels.
-    CRLOT_BLOCKED_GROUP overrides for A/B measurement (validity-checked).
+    G = 2 output hop-blocks per matmul row. Any G with `G | 2*(R-1)` makes
+    the kernel height L_G = (2R + G - 2)*hop an exact multiple of G*hop, so
+    the kernel needs no zero-row padding and the look-ahead context equals
+    the (N - hop) halo the mesh formulation already exchanges; G = 2
+    divides 2*(R-1) for every R.
     """
     if not (
         nfft <= MAX_MATMUL_NFFT
@@ -588,19 +574,7 @@ def blocked_group_for(nfft: int, hop: int):
         and nfft // hop >= 2
     ):
         return None
-    r = nfft // hop
-
-    def ok(g):
-        return (g * hop) % 128 == 0 and (2 * (r - 1)) % g == 0
-
-    env = os.environ.get("CRLOT_BLOCKED_GROUP")
-    if env:
-        g = int(env)
-        return g if ok(g) else None
-    for g in range(2, 2 * (r - 1) + 1):
-        if ok(g):
-            return g
-    return None
+    return 2
 
 
 def composed_block_supported(nfft: int, hop: int) -> bool:
@@ -619,7 +593,7 @@ def _composed_block_kernel_grouped(
     """K for GROUP consecutive output hop-blocks per matmul row: the G=1
     kernel stacked block-banded, K_G[tau, g*hop + s] = K1[tau - g*hop, s].
     Larger G trades a mild MAC increase ((R+G-2)*hop + N per sample vs
-    (R-1)*hop + N) for ONE chunky MXU matmul instead of L/hop skinny ones."""
+    (R-1)*hop + N) for ONE chunky matmul instead of L/hop skinny ones."""
     k1 = _composed_block_kernel(
         nfft, hop, awin_bytes, swin_bytes, response_bytes
     ).astype(np.float64)
@@ -652,14 +626,12 @@ def hopblock_apply(
     right = (nb - 1 + mg) * block - left - x.shape[-1]
     x_ext = jnp.pad(x, ((0, 0),) * (x.ndim - 1) + ((left, right),))
     blocks = x_ext.reshape(x_ext.shape[:-1] + (-1, block))
-    prec = _prec(precision)
     kj = jnp.asarray(kern_f32)
     acc = None
     for m in range(mg):
-        term = jnp.dot(
-            blocks[..., m : m + nb, :],
-            kj[m * block : (m + 1) * block, :],
-            precision=prec,
+        term = _dot(
+            blocks[..., m : m + nb, :], kj[m * block : (m + 1) * block, :],
+            precision,
         )
         acc = term if acc is None else acc + term
     return acc.reshape(acc.shape[:-2] + (nb * block,))[..., :n_out]
@@ -738,7 +710,6 @@ def blocked_edge_patch(
     """
     r_count = nfft // hop
     edge = (r_count - 1) * hop
-    prec = _prec(precision)
     m = jnp.asarray(
         _composed_roundtrip_basis(nfft, awin_bytes, swin_bytes, response_bytes)
     )
@@ -746,7 +717,7 @@ def blocked_edge_patch(
         [x_region[..., f * hop : f * hop + nfft] for f in range(r_count - 1)],
         axis=-2,
     )  # [..., R-1, N]
-    of = jnp.matmul(frames_small, m, precision=prec)
+    of = _dot(frames_small, m, precision)
     span_l = (r_count - 2) * hop + nfft
     acc_l = jnp.zeros(of.shape[:-2] + (span_l,), jnp.float32)
     for f in range(r_count - 1):  # ascending order (OLA convention)
@@ -871,11 +842,8 @@ def roundtrip_composed_conv(
     1-D convolution with kernel M and stride=hop, so XLA's conv lowering
     windows the signal internally — the [F, N] frame matrix is never
     materialized to HBM. Identical math to frame_signal +
-    roundtrip_composed_matmul — but MEASURED 180x SLOWER on TPU (84 ms vs
-    0.46 ms per 60 s, interleaved): XLA's conv lowering falls off the MXU
-    fast path at stride=256 / width=1024 / 1024 output channels. Kept as
-    a documented formulation (and CPU-tested); NOT used by the
-    pipeline."""
+    roundtrip_composed_matmul, through XLA's conv lowering. Kept as a
+    documented formulation (and CPU-tested); NOT used by the pipeline."""
     m = jnp.asarray(
         _composed_roundtrip_basis(
             nfft,
@@ -907,234 +875,6 @@ def roundtrip_composed_conv(
     return out.reshape(lead + out.shape[1:])
 
 
-def quad_supported(nfft: int) -> bool:
-    """Quarter-basis path wants q = N/4 lane-aligned (multiple of 128)."""
-    return nfft % 512 == 0 and nfft <= MAX_MATMUL_NFFT
-
-
-def _quad_inverse_f64(nfft: int, g: "np.ndarray | None"):
-    """f64 inverse quarter-bases with an optional per-bin gain g[K] folded
-    into the constants (rows k scaled by g[k] — the zero-cost-EQ trick of
-    `_tiled_inverse_gained` carried to the parity-split layout)."""
-    h = nfft // 2
-    q = h // 2
-    m = np.arange(q, dtype=np.float64)
-    k_e = 2.0 * m  # even bins k = 2m, m = 0..q-1
-    k_o = 2.0 * m + 1.0  # odd bins k = 2m+1
-    n_c = np.arange(q, dtype=np.float64)  # output positions n = 0..q-1
-    n_m = np.arange(1, q, dtype=np.float64)  # interior n = 1..q-1
-    tw = 2.0 * np.pi / nfft
-    w_e = np.full(q, 2.0)
-    w_e[0] = 1.0  # hermitian weight w_0 = 1
-    w_o = np.full(q, 2.0)
-    g_e = np.ones(q) if g is None else g[0::2][:q]
-    g_o = np.ones(q) if g is None else g[1::2][:q]
-    g_nyq = 1.0 if g is None else float(g[h])
-    we = w_e * g_e
-    wo = w_o * g_o
-    altq = np.where(np.arange(q) % 2 == 0, 1.0, -1.0)
-    pe = (we[:, None] * np.cos(tw * np.outer(k_e, n_c))) / nfft  # [q, q]
-    po = (wo[:, None] * np.cos(tw * np.outer(k_o, n_c))) / nfft  # [q, q]
-    qe = -(we[1:, None] * np.sin(tw * np.outer(k_e[1:], n_m))) / nfft
-    qo = -(wo[:, None] * np.sin(tw * np.outer(k_o, n_m))) / nfft  # [q, q-1]
-    pe_q = we * altq / nfft  # n = q column of the even-cos inverse
-    qo_q = -(wo * altq) / nfft  # n = q column of the odd-sin inverse
-    cve = we / nfft  # a_nyq row: w_k (-1)^k g_k / N at k = 2m
-    cvo = -wo / nfft  # ... and at k = 2m+1
-    return pe, po, qe, qo, pe_q, qo_q, cve, cvo, g_nyq
-
-
-@lru_cache(maxsize=None)
-def _quad_consts(nfft: int):
-    """Quarter-size DFT bases: ONE MORE exact symmetry fold than
-    `_folded_forward_consts`, halving MXU FLOPs again.
-
-    The folded cos basis satisfies cos(2*pi*k*(h-n)/N) = (-1)^k cos(...)
-    (h = N/2), so folding the even/odd frame halves once more about N/4
-    splits every half-size matmul into TWO quarter-size matmuls — one per
-    bin parity — with sign-only (twiddle-free) combining. The spectrum
-    stays in its parity-split layout between forward and inverse (the
-    round-trip never reorders bins), and all fixed points of the fold
-    (n = 0, N/4; k = Nyquist) are exact rank-1 VPU borders, same trick as
-    `_tiled_consts`. At N=1024 the cores are [256, 256]: two full MXU
-    blocks per dim — the <128-contraction-dim waste that killed the full
-    radix-split CT (docs/DESIGN.md) never appears at this depth.
-
-    Numerics follow the reference contract (kissfft_adapter.cc:138-167
-    semantics: inverse includes 1/N) with f64-designed constants.
-    """
-    assert nfft % 4 == 0 and nfft >= 4
-    h = nfft // 2
-    q = h // 2
-    m = np.arange(q, dtype=np.float64)
-    k_e = 2.0 * m
-    k_o = 2.0 * m + 1.0
-    n_c = np.arange(q, dtype=np.float64)
-    n_m = np.arange(1, q, dtype=np.float64)
-    tw = 2.0 * np.pi / nfft
-    ce = np.cos(tw * np.outer(n_c, k_e))  # [q, q] rows n = 0..q-1
-    co = np.cos(tw * np.outer(n_c, k_o))  # [q, q]
-    se = -np.sin(tw * np.outer(n_m, k_e[1:]))  # [q-1, q-1] m = 1..q-1
-    so = -np.sin(tw * np.outer(n_m, k_o))  # [q-1, q]
-    inv = _quad_inverse_f64(nfft, None)[:-1]
-    altq = np.where(np.arange(q) % 2 == 0, 1.0, -1.0)
-    sign_q = 1.0 if q % 2 == 0 else -1.0
-
-    def f32(a):
-        return np.ascontiguousarray(a, np.float32)
-
-    return (
-        f32(ce), f32(co), f32(se), f32(so),
-        tuple(f32(a) for a in inv),
-        f32(altq), sign_q,
-    )
-
-
-@lru_cache(maxsize=None)
-def _quad_inverse_gained(nfft: int, gains_bytes: bytes):
-    g = np.frombuffer(gains_bytes, dtype=np.float64)
-    assert len(g) == nfft // 2 + 1
-    out = _quad_inverse_f64(nfft, g)
-    return (
-        tuple(np.ascontiguousarray(a, np.float32) for a in out[:-1]),
-        out[-1],
-    )
-
-
-def rfft_folded_quad_parts(
-    x: jnp.ndarray, nfft: int, window_f32=None, precision=None
-):
-    """rfft(x [* w]) -> parity-split packed spectrum via four quarter-size
-    MXU matmuls (half the FLOPs of `rfft_folded_tiled_parts`):
-
-      re_e [..., q]   = Re X[2m],   m = 0..q-1      (q = nfft//4)
-      re_o [..., q]   = Re X[2m+1]
-      re_nyq [..., 1] = Re X[h]                      (h = nfft//2)
-      im_e [..., q-1] = Im X[2m],   m = 1..q-1       (Im X[0] = 0 exactly)
-      im_o [..., q]   = Im X[2m+1]
-    """
-    ce, co, se, so, _, altq, sign_q = _quad_consts(nfft)
-    h = nfft // 2
-    q = h // 2
-    y = x.astype(jnp.float32)
-    if window_f32 is not None:
-        y = y * window_f32
-    # First fold (about N/2): even/odd parts of the frame.
-    head = y[..., 1:h]
-    tail = jnp.flip(y[..., h + 1 :], axis=-1)
-    e = jnp.concatenate([y[..., :1], head + tail], axis=-1)  # n = 0..h-1
-    e_n = y[..., h : h + 1]
-    o = head - tail  # n = 1..h-1
-    # Second fold (about N/4), pairing n <-> h-n.
-    e_head = e[..., 1:q]
-    e_tail = jnp.flip(e[..., q + 1 :], axis=-1)  # e[h-n], n = 1..q-1
-    u = jnp.concatenate([e[..., :1], e_head + e_tail], axis=-1)  # [..., q]
-    v = jnp.concatenate([e[..., :1], e_head - e_tail], axis=-1)  # [..., q]
-    eq = e[..., q : q + 1]
-    o_head = o[..., : q - 1]  # o[n],   n = 1..q-1
-    o_tail = jnp.flip(o[..., q:], axis=-1)  # o[h-n], n = 1..q-1
-    od = o_head - o_tail
-    os_ = o_head + o_tail
-    oq = o[..., q - 1 : q]
-    altj = jnp.asarray(altq)
-    prec = _prec(precision)
-    # Borders: e[q] enters even bins as (-1)^m (odd bins: cos(pi*k/2) = 0);
-    # y[h] enters every Re bin as (-1)^k -> +1 on even bins, -1 on odd.
-    re_e = jnp.dot(u, jnp.asarray(ce), precision=prec) + eq * altj + e_n
-    re_o = jnp.dot(v, jnp.asarray(co), precision=prec) - e_n
-    re_nyq = (
-        jnp.sum(u * altj, axis=-1, keepdims=True) + eq * sign_q + e_n
-    )
-    im_e = jnp.dot(od, jnp.asarray(se), precision=prec)
-    im_o = jnp.dot(os_, jnp.asarray(so), precision=prec) - oq * altj
-    return re_e, re_o, re_nyq, im_e, im_o
-
-
-def irfft_folded_quad_parts(
-    re_e: jnp.ndarray,
-    re_o: jnp.ndarray,
-    re_nyq: jnp.ndarray,
-    im_e: jnp.ndarray,
-    im_o: jnp.ndarray,
-    nfft: int,
-    precision=None,
-    per_bin_gains_f64=None,
-) -> jnp.ndarray:
-    """Parity-split packed spectrum -> real [..., nfft] (includes 1/N) via
-    four quarter-size matmuls; optional REAL per-bin gain folded into the
-    inverse constants at zero runtime cost."""
-    _, _, _, _, inv, altq, sign_q = _quad_consts(nfft)
-    g_nyq = 1.0
-    if per_bin_gains_f64 is not None:
-        inv, g_nyq = _quad_inverse_gained(
-            nfft, np.ascontiguousarray(per_bin_gains_f64, np.float64).tobytes()
-        )
-    pe_b, po_b, qe_b, qo_b, pe_q, qo_q, cve, cvo = inv
-    h = nfft // 2
-    q = h // 2
-    altj = jnp.asarray(altq)
-    prec = _prec(precision)
-    pe = jnp.dot(re_e, jnp.asarray(pe_b), precision=prec)  # [..., q]
-    po = jnp.dot(re_o, jnp.asarray(po_b), precision=prec)  # [..., q]
-    # Nyquist-bin contribution (-1)^n g/N is n-even under the fold (h even).
-    P = pe + re_nyq * (g_nyq / nfft) * altj
-    a_q = (
-        jnp.sum(re_e * jnp.asarray(pe_q), axis=-1, keepdims=True)
-        + re_nyq * (g_nyq * sign_q / nfft)
-    )
-    qe = jnp.dot(im_e, jnp.asarray(qe_b), precision=prec)  # [..., q-1]
-    qo = jnp.dot(im_o, jnp.asarray(qo_b), precision=prec)  # [..., q-1]
-    b_q = jnp.sum(im_o * jnp.asarray(qo_q), axis=-1, keepdims=True)
-    a_nyq = (
-        jnp.sum(re_e * jnp.asarray(cve), axis=-1, keepdims=True)
-        + jnp.sum(re_o * jnp.asarray(cvo), axis=-1, keepdims=True)
-        + re_nyq * (g_nyq / nfft)  # (-1)^h = +1 (h even for nfft % 4 == 0)
-    )
-    # Unfold both symmetry levels in one assembly:
-    #   x[n]     = P[n] + po[n] + qe[n] + qo[n]        n = 1..q-1
-    #   x[h-n]   = P[n] - po[n] - qe[n] + qo[n]
-    #   x[h+n]   = P[n] - po[n] + qe[n] - qo[n]
-    #   x[N-n]   = P[n] + po[n] - qe[n] - qo[n]
-    Pm = P[..., 1:]
-    pom = po[..., 1:]
-    out0 = P[..., :1] + po[..., :1]
-    return jnp.concatenate(
-        [
-            out0,
-            Pm + pom + qe + qo,
-            a_q + b_q,
-            jnp.flip(Pm - pom - qe + qo, axis=-1),
-            a_nyq,
-            Pm - pom + qe - qo,
-            a_q - b_q,
-            jnp.flip(Pm + pom - qe - qo, axis=-1),
-        ],
-        axis=-1,
-    )
-
-
-def roundtrip_folded_quad(
-    frames: jnp.ndarray,
-    nfft: int,
-    analysis_window_f64: np.ndarray,
-    synthesis_window_f64=None,
-    precision=None,
-    per_bin_gains_f64=None,
-) -> jnp.ndarray:
-    """irfft(rfft(frames * w) [* g]) via quarter-size DFT bases: HALF the
-    MXU FLOPs of `roundtrip_folded_tiled` (8 matmuls with [N/4, N/4] cores
-    vs 4 with [N/2, N/2]), with the spectrum held in parity-split layout
-    between the directions so no bin reorder is ever materialized."""
-    w = jnp.asarray(np.asarray(analysis_window_f64, np.float32))
-    parts = rfft_folded_quad_parts(frames, nfft, w, precision)
-    out = irfft_folded_quad_parts(
-        *parts, nfft, precision, per_bin_gains_f64
-    )
-    if synthesis_window_f64 is not None:
-        out = out * jnp.asarray(np.asarray(synthesis_window_f64, np.float32))
-    return out
-
-
 def roundtrip_packed_matmul(
     frames: jnp.ndarray,
     nfft: int,
@@ -1147,8 +887,7 @@ def roundtrip_packed_matmul(
     The forward basis emits [Re | Im] packed reals — exactly the layout the
     inverse basis consumes — so the identity-processing round-trip never
     interleaves into complex64 (complex conversion costs two full passes over
-    the spectrum on TPU). Used by pipeline.round_trip when spectral_fn is
-    None; any real processing goes through the complex view instead.
+    the spectrum).
     """
     wb = np.asarray(analysis_window_f64, np.float64).tobytes()
     fwd = jnp.asarray(_windowed_forward_basis(nfft, wb))
@@ -1157,7 +896,5 @@ def roundtrip_packed_matmul(
         inv = jnp.asarray(_windowed_inverse_basis(nfft, sb))
     else:
         inv = jnp.asarray(_inverse_basis(nfft))
-    packed = jnp.dot(
-        frames.astype(jnp.float32), fwd, precision=_prec(precision)
-    )
-    return jnp.dot(packed, inv, precision=_prec(precision))
+    packed = _dot(frames.astype(jnp.float32), fwd, precision)
+    return _dot(packed, inv, precision)

@@ -8,8 +8,8 @@ Reference: dsp/fft/backends/kissfft/kissfft_adapter.cc. Contract carried over:
     scrubs the output,
   - REAL forward yields nfft/2+1 bins.
 
-TPUs flush denormals natively, so the denormal scrub is a no-op on hardware
-but kept for bit-equivalent CPU testing.
+The denormal scrub makes results independent of whether a backend flushes
+denormals, so CPU and GPU runs stay comparable.
 """
 
 from __future__ import annotations

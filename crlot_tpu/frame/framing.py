@@ -1,7 +1,7 @@
 """Batch framing: signal -> [num_frames, frame_size] matrix.
 
 Reference: dsp/frame/FrameQueue.{h,cc} (offline AoS framing with centered
-padding) — TPU-first formulation per SURVEY.md §2.4: one gather with index
+padding) — accelerator formulation per SURVEY.md §2.4: one gather with index
 matrix `start[i] + j` over the padded signal, which XLA fuses with the window
 multiply and feeds straight into the batched rFFT. No per-frame copies exist.
 """
@@ -31,7 +31,7 @@ def hop_block_frames(
     with frame f = x[f*hop : f*hop + frame_size].
 
     Reshapes the signal into hop blocks and stacks R = ceil(N/H) shifted
-    [F, hop] views. TPU gathers with arbitrary index matrices are slow; this
+    [F, hop] views. Gathers with arbitrary index matrices are slow; this
     lowers to R static slices + one concat, all contiguous copies (the
     hop-block dual of the OLA formulation in ola/reference.py).
     """

@@ -13,7 +13,7 @@ batched gather in crlot_tpu.frame.framing. Semantics kept exactly:
     (framer.cc:120-126, 169-179).
 
 The extra `pop_batch` pops as many frames as available at once into a
-[frames, channels, frame_size] array — the natural unit to ship to the TPU.
+[frames, channels, frame_size] array — the natural unit to ship to the device.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ build soft masks from the two filtered copies, apply to the complex STFT,
 and invert.
 
 The reference toolkit stops at the raw spectrum (main/main.cc:186-208);
-this sits on top of the same stft/istft pipeline. TPU shape discipline:
+this sits on top of the same stft/istft pipeline. Static-shape discipline:
 the sliding median is `k` statically-shifted copies stacked on a new axis
 and reduced with `jnp.median` — no dynamic windows, no data-dependent
 control flow, one jit for the whole separate-and-invert program. The

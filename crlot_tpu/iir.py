@@ -1,9 +1,10 @@
-"""IIR filtering as a parallel (log-depth) scan — the TPU-native recursion.
+"""IIR filtering as a parallel (log-depth) scan.
 
 An IIR filter is the one DSP primitive that looks un-parallelizable: every
 output depends on the previous one. The reference toolkit sidesteps it (FIR
 only); a sequential Python/`lax.scan` loop over samples would be catastrophic
-on a TPU (one VPU step per sample, no batching). The TPU-native formulation:
+on an accelerator (one step per sample, no batching). The parallel
+formulation:
 the direct-form-II-transposed recurrence is an *affine* map per sample,
 
     s[t] = A s[t-1] + c x[t]        (A constant [N, N], c [N])
@@ -60,10 +61,10 @@ def _affine_scan(A, c, b0, x, s0):
     mats = jnp.broadcast_to(A, x.shape + (n, n))  # [B, T, N, N]
     vecs = c * x[..., None]  # [B, T, N]
 
-    # HIGHEST precision: the contraction dim is N (2 for a biquad) so the
-    # MXU gains nothing, and the TPU's default bf16 matmul passes compound
-    # across the log-depth scan into ~40 dB output error (measured on v5e);
-    # exact-f32 contractions restore the >=70 dB scipy-parity gate.
+    # HIGHEST precision: the contraction dim is N (2 for a biquad), so a
+    # reduced-precision matmul gains nothing, and its rounding compounds
+    # across the log-depth scan; exact-f32 contractions keep the >=70 dB
+    # scipy-parity gate.
     hi = jax.lax.Precision.HIGHEST
 
     def combine(e1, e2):

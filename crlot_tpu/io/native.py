@@ -200,7 +200,7 @@ class NativeRing:
     instantiated for float/double/int16/int32/uint16/uint32 at :207-213).
 
     Wrap-around write/contiguous read over a fixed capacity, with an optional
-    2x shadow mirror so reads never wrap (the reference's TPU-friendly
+    2x shadow mirror so reads never wrap (the reference's batch-friendly
     layout). Element type is fixed at construction via numpy dtype.
     """
 

@@ -1,23 +1,17 @@
-"""Fused Pallas OLA + normalize kernel: one pass over HBM.
+"""Overlap-add + COLA-normalise in one pass over the frames.
 
-The jnp overlap-add (ola/reference.py) issues R dynamic-update-slice adds,
-each reading and writing the whole output buffer — ~2R x output traffic. This
-kernel computes each output hop-block tile directly:
+`ola/reference.py` accumulates with R = ceil(N/H) dynamic-update-slice adds,
+each of which reads and writes the whole output buffer. `ola_normalized`
+writes the same sum as R shifted, zero-padded hop planes added in the same
+order (r descending == ascending frame index) and divides by the norm in the
+same expression, so XLA emits one fused loop that reads each frame once:
 
-    out[b] = (sum_{r=R-1..0} hops_padded[b + (R-1-r), r]) / max(norm[b], eps)
+    out[b] = (sum_{r=R-1..0} hops[b - r, r]) / max(norm[b], eps)
 
-Mosaic requires DMA slice shapes aligned to the memref tiling, so the frame
-matrix stays in its natural 2-D [F, R*H] layout and each grid step issues ONE
-sublane-aligned DMA of (tile + pad) rows; the R diagonal (frame-shifted)
-views are taken by sub-slicing VMEM, where misaligned sublane offsets are
-legal. Read amplification is (tile+pad)/tile (~1.25x at tile=32); everything
-else moves once, so traffic ~= read(frames) + read(norm) + write(out) — vs
-~2R passes for the jnp path. The summation runs r descending = ascending
-frame index, matching the canonical left-to-right frame order of the jnp
-path bit-for-bit.
-
-Constraints: hop % 128 == 0 and f32 (VPU lane alignment); other configs fall
-back to the jnp path (ola_normalized_auto).
+Adding the zero padding is exact (a running sum that starts at +0.0 never
+becomes -0.0), so the result is bit-identical to
+`normalize(overlap_add(...))`: the canonical left-to-right frame order that
+sharded and streamed outputs rely on is kept.
 """
 
 from __future__ import annotations
@@ -26,145 +20,36 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .reference import normalize, overlap_add
-
-_LANES = 128
-_SUBLANES = 8
-_DEF_TILE = 32  # output hop-blocks per grid step
+from .reference import overlap_count
 
 
-def _fused_kernel(r_count: int, hop: int, extra: int, eps: float, dma_row,
-                  hops_ref, norm_ref, out_ref, scratch, sem):
-    b = pl.program_id(0)
-    tb = out_ref.shape[0]
-    dma = pltpu.make_async_copy(
-        hops_ref.at[pl.ds(dma_row(b), tb + extra), :], scratch, sem
-    )
-    dma.start()
-    dma.wait()
-    # Row j of this tile needs hops rows j + (R-1-r) for each r; take the R
-    # shifted views from VMEM. r descending == ascending frame index
-    # (canonical summation order).
-    r = r_count - 1
-    acc = scratch[0:tb, r * hop : (r + 1) * hop]
-    for r in range(r_count - 2, -1, -1):
-        shift = r_count - 1 - r
-        acc = acc + scratch[shift : shift + tb, r * hop : (r + 1) * hop]
-    out_ref[:] = acc / jnp.maximum(norm_ref[:], eps)
-
-
-@partial(jax.jit, static_argnames=("hop", "out_len", "eps", "interpret"))
-def ola_normalized_fused(
-    frames: jnp.ndarray,  # [F, N] or [B, F, N] f32 (windowed output frames)
-    norm: jnp.ndarray,  # [out_len] f32
+@partial(jax.jit, static_argnames=("hop", "out_len", "eps"))
+def ola_normalized(
+    frames: jnp.ndarray,  # [..., F, N] f32 (windowed output frames)
+    norm: jnp.ndarray,  # [>= out_len] f32 COLA norm
     hop: int,
     out_len: int,
     eps: float = 1e-8,
-    interpret: bool = False,
 ) -> jnp.ndarray:
-    """Fused OLA + divide for 2-D or batched 3-D frames; module docstring.
-
-    Batches pack into ONE kernel launch: each batch gets its own row region
-    of the padded hop-block matrix (front zeros realize the frame shift,
-    back padding rounds to a whole number of tiles), so no tile's diagonal
-    views ever cross a batch boundary and the 2-D kernel runs unchanged
-    over grid = B * tiles_per_batch.
-    """
-    batched = frames.ndim == 3
-    bsz = frames.shape[0] if batched else 1
+    """`normalize(overlap_add(frames, hop, out_len), norm, eps)` as one
+    fusion; see the module docstring."""
+    lead = frames.shape[:-2]
     f, n = frames.shape[-2:]
-    r_count = -(-n // hop)
+    r_count = overlap_count(n, hop)
     n_pad = r_count * hop
     if n_pad != n:
-        frames = jnp.pad(
-            frames, ((0, 0),) * (frames.ndim - 1) + ((0, n_pad - n),)
+        frames = jnp.pad(frames, ((0, 0),) * (frames.ndim - 1) + ((0, n_pad - n),))
+    hops = frames.reshape(lead + (f, r_count, hop))
+    acc = jnp.zeros(lead + (f + r_count - 1, hop), frames.dtype)
+    for r in range(r_count - 1, -1, -1):
+        acc = acc + jnp.pad(
+            hops[..., :, r, :],
+            ((0, 0),) * len(lead) + ((r, r_count - 1 - r), (0, 0)),
         )
-    blocks = -(-out_len // hop)
-    tile = _DEF_TILE
-    grid_b = -(-blocks // tile)
-    extra = -(-(r_count - 1) // _SUBLANES) * _SUBLANES if r_count > 1 else 0
-    # Row b of each batch's padded matrix holds frame b - (R-1) (front pad
-    # realizes the +(R-1-r) shift); back pad keeps every tile's DMA inside
-    # the batch's own region.
-    rows_per = grid_b * tile + extra
-    back = max(0, rows_per - f - (r_count - 1))
-    pad_rows = ((r_count - 1, back), (0, 0))
-    if batched:
-        hops_p = jnp.pad(frames, ((0, 0),) + pad_rows).reshape(
-            bsz * rows_per, n_pad
-        )
-    else:
-        hops_p = jnp.pad(frames, pad_rows)
-    norm_p = jnp.pad(norm, (0, grid_b * tile * hop - out_len)).reshape(
-        grid_b * tile, hop
-    )
-    if batched:
-        norm_p = jnp.tile(norm_p, (bsz, 1))
+    flat = acc.reshape(lead + ((f + r_count - 1) * hop,))
+    if out_len > flat.shape[-1]:
+        flat = jnp.pad(flat, ((0, 0),) * len(lead) + ((0, out_len - flat.shape[-1]),))
+    norm = jnp.asarray(norm, frames.dtype)[:out_len]
+    return flat[..., :out_len] / jnp.maximum(norm, jnp.asarray(eps, frames.dtype))
 
-    grid = bsz * grid_b
-
-    def dma_row(i):
-        # Tile i = (batch, local tile) — skip the `extra` tail rows of the
-        # previous batches so diagonal views stay batch-local.
-        if batched:
-            return i * tile + (i // grid_b) * extra
-        return i * tile
-
-    out = pl.pallas_call(
-        partial(_fused_kernel, r_count, hop, extra, eps, dma_row),
-        out_shape=jax.ShapeDtypeStruct((grid * tile, hop), jnp.float32),
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.HBM),  # frame matrix stays in HBM
-            pl.BlockSpec((tile, hop), lambda b: (b, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile, hop), lambda b: (b, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((tile + extra, n_pad), jnp.float32),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-        interpret=interpret,
-    )(hops_p, norm_p)
-    if batched:
-        return out.reshape(bsz, grid_b * tile * hop)[:, :out_len]
-    return out.reshape(-1)[:out_len]
-
-
-def fused_supported(frames_shape, hop: int) -> bool:
-    return (
-        len(frames_shape) == 2
-        and hop % _LANES == 0
-        and frames_shape[-1] % 2 == 0
-    )
-
-
-def ola_normalized_auto(
-    frames: jnp.ndarray,
-    norm: jnp.ndarray,
-    hop: int,
-    out_len: int,
-    eps: float = 1e-8,
-) -> jnp.ndarray:
-    """Pick the fused Pallas kernel when the config allows, else jnp.
-
-    Batched ([..., F, N]) inputs unroll the fused kernel over leading axes.
-    """
-    on_tpu = jax.default_backend() == "tpu"
-    if frames.ndim > 2 and fused_supported(frames.shape[-2:], hop) and on_tpu:
-        # vmap of a pallas_call with HBM-resident inputs does not lower on
-        # Mosaic (the batched index_map on a memory_space=ANY block is
-        # rejected); instead all batches pack into ONE launch via row
-        # stacking (see ola_normalized_fused).
-        lead = frames.shape[:-2]
-        flat = frames.reshape((-1,) + frames.shape[-2:])
-        out = ola_normalized_fused(flat, norm, hop, out_len, eps)
-        return out.reshape(lead + (out_len,))
-    if frames.ndim == 2 and fused_supported(frames.shape, hop) and on_tpu:
-        return ola_normalized_fused(frames, norm, hop, out_len, eps)
-    acc = overlap_add(frames, hop, out_len)
-    return normalize(acc, norm[:out_len], eps)

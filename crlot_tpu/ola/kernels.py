@@ -1,167 +1,52 @@
-"""Pallas TPU kernels: the reference's SIMD hot loops, TPU-native.
+"""The reference's flat-array OLA kernels as jnp expressions.
 
-Reference: dsp/ola/kernels.{h,cc} + kernels_hwy.cc — three flat-array kernels
-(axpy, axpy_windowed, normalize_and_clear) in scalar + Highway-SIMD form with
-runtime dispatch. Here each is a Pallas VPU kernel with a jnp reference
-implementation; the dual-implementation ±ULP equivalence test pattern
-(tests/kernels_test.cc:214-317) carries over as pallas-vs-jnp suites sweeping
-sizes that straddle the 8x128 VPU tile (SURVEY.md §2.7 TPU mapping).
+Reference: dsp/ola/kernels.{h,cc} + kernels_hwy.cc — three flat-array
+kernels (axpy, axpy_windowed, normalize_and_clear) in scalar and
+Highway-SIMD form with runtime dispatch. Each is one elementwise
+expression, which XLA fuses into whatever produces or consumes it, so one
+jitted form serves every backend.
 
-Arbitrary lengths are handled by padding to lane multiples and reshaping to
-[rows, 128]; padding lanes compute garbage that is sliced off (reads of the
-zero pad are well-defined).
-
-Dispatch introspection (`get_supported_targets` etc., kernels.cc:58-147) maps
-to `kernel_dispatch_info()` reporting the jax backend/device instead of
+Dispatch introspection (`get_supported_targets` etc., kernels.cc:58-147)
+maps to `kernel_dispatch_info()`, which reports the JAX device instead of
 AVX2/NEON lane counts.
 """
 
 from __future__ import annotations
 
-import os
-from functools import partial
-from typing import Dict, Optional
+from typing import Dict
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 # Max frame size the ring shadow sizing assumed in the reference
 # (dsp/ola/kernels.h:11); kept as the tested upper bound for sweeps.
 MAX_FRAME_SIZE = 16384
 
-_LANES = 128
-_SUBLANES = 8
-_TILE_ROWS = 256  # rows of 128 lanes per grid step (128 KiB fp32 per operand)
-
-# Size-aware dispatch boundary (reference analog: runtime SIMD dispatch,
-# kernels.cc:42-52): below this element count the pad-to-8x128 + pallas_call
-# overhead exceeds the cost of the XLA-fused jnp form, so the wrappers route
-# small arrays to the jnp oracle. Boundary measured on v5e by
-# bench_kernels' n=16..32768 sweep (suite.py); override with
-# CRLOT_PALLAS_MIN_N. Off-TPU (interpret mode) Pallas is always slower, so
-# auto-dispatch never picks it there.
-_MIN_PALLAS_N = int(os.environ.get("CRLOT_PALLAS_MIN_N", "32768"))
-
-
-def pallas_min_n() -> int:
-    return _MIN_PALLAS_N
-
-
-def _use_interpret() -> bool:
-    """Pallas TPU kernels run compiled on TPU, interpreted elsewhere (CPU
-    tests). Mirrors the reference's runtime dispatch idea."""
-    return jax.default_backend() != "tpu"
-
-
-def _dispatch_pallas(n: int, use_pallas: Optional[bool]) -> bool:
-    """Resolve the use_pallas tri-state: explicit True/False wins; None picks
-    Pallas only on TPU at sizes past the measured crossover."""
-    if use_pallas is not None:
-        return use_pallas
-    return jax.default_backend() == "tpu" and n >= _MIN_PALLAS_N
-
-
-def _pad_rows(x: jnp.ndarray) -> tuple[jnp.ndarray, int]:
-    n = x.shape[-1]
-    rows = -(-n // _LANES)
-    rows_pad = -(-rows // _SUBLANES) * _SUBLANES
-    total = rows_pad * _LANES
-    if total != n:
-        x = jnp.pad(x, (0, total - n))
-    return x.reshape(rows_pad, _LANES), rows_pad
-
-
-def _grid_rows(rows: int) -> tuple[int, int]:
-    tile = min(_TILE_ROWS, rows)
-    return -(-rows // tile), tile
-
-
-# --- axpy: dst += src * gain (reference: kernels.cc:18-22, hwy :19-38) ---
-
-
-def _axpy_kernel(src_ref, dst_ref, gain_ref, out_ref):
-    out_ref[:] = dst_ref[:] + src_ref[:] * gain_ref[0]
-
 
 @jax.jit
-def axpy_reference(dst: jnp.ndarray, src: jnp.ndarray, gain) -> jnp.ndarray:
-    """Scalar-equivalent jnp oracle (kernels.cc:18-22)."""
+def _axpy(dst: jnp.ndarray, src: jnp.ndarray, gain) -> jnp.ndarray:
     return dst + src * jnp.float32(gain)
 
 
-@partial(jax.jit, static_argnames=("interpret",))
-def _axpy_pallas(dst, src, gain, interpret):
-    n = dst.shape[-1]
-    d2, rows = _pad_rows(dst)
-    s2, _ = _pad_rows(src)
-    grid, tile = _grid_rows(rows)
-    spec = pl.BlockSpec((tile, _LANES), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    out = pl.pallas_call(
-        _axpy_kernel,
-        out_shape=jax.ShapeDtypeStruct(d2.shape, d2.dtype),
-        grid=(grid,),
-        in_specs=[
-            spec,
-            spec,
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_specs=spec,
-        interpret=interpret,
-    )(s2, d2, jnp.asarray([gain], dtype=jnp.float32))
-    return out.reshape(-1)[:n]
-
-
-def axpy(dst: jnp.ndarray, src: jnp.ndarray, gain=1.0,
-         use_pallas: Optional[bool] = None) -> jnp.ndarray:
-    """Returns dst + src*gain (functional form of the in-place reference).
-
-    use_pallas: None = size/backend auto-dispatch, True/False forces."""
+def axpy(dst: jnp.ndarray, src: jnp.ndarray, gain=1.0) -> jnp.ndarray:
+    """Returns dst + src*gain, the functional form of the in-place reference
+    (kernels.cc:18-22)."""
     dst = jnp.asarray(dst, dtype=jnp.float32)
     src = jnp.asarray(src, dtype=jnp.float32)
     if dst.shape != src.shape:
         raise ValueError(f"shape mismatch {dst.shape} vs {src.shape}")
     if dst.size == 0:
         return dst
-    if not _dispatch_pallas(dst.size, use_pallas):
-        return axpy_reference(dst, src, gain)
-    return _axpy_pallas(dst, src, gain, _use_interpret())
-
-
-# --- axpy_windowed: dst += src * win * gain (kernels.cc:24-28, hwy :43-68) ---
-
-
-def _axpy_windowed_kernel(src_ref, win_ref, dst_ref, gain_ref, out_ref):
-    out_ref[:] = dst_ref[:] + src_ref[:] * win_ref[:] * gain_ref[0]
+    return _axpy(dst, src, gain)
 
 
 @jax.jit
-def axpy_windowed_reference(dst, src, win, gain) -> jnp.ndarray:
+def _axpy_windowed(dst, src, win, gain) -> jnp.ndarray:
     return dst + src * win * jnp.float32(gain)
 
 
-@partial(jax.jit, static_argnames=("interpret",))
-def _axpy_windowed_pallas(dst, src, win, gain, interpret):
-    n = dst.shape[-1]
-    d2, rows = _pad_rows(dst)
-    s2, _ = _pad_rows(src)
-    w2, _ = _pad_rows(win)
-    grid, tile = _grid_rows(rows)
-    spec = pl.BlockSpec((tile, _LANES), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    out = pl.pallas_call(
-        _axpy_windowed_kernel,
-        out_shape=jax.ShapeDtypeStruct(d2.shape, d2.dtype),
-        grid=(grid,),
-        in_specs=[spec, spec, spec, pl.BlockSpec(memory_space=pltpu.SMEM)],
-        out_specs=spec,
-        interpret=interpret,
-    )(s2, w2, d2, jnp.asarray([gain], dtype=jnp.float32))
-    return out.reshape(-1)[:n]
-
-
-def axpy_windowed(dst, src, win, gain=1.0,
-                  use_pallas: Optional[bool] = None) -> jnp.ndarray:
+def axpy_windowed(dst, src, win, gain=1.0) -> jnp.ndarray:
+    """Returns dst + src*win*gain (kernels.cc:24-28)."""
     dst = jnp.asarray(dst, dtype=jnp.float32)
     src = jnp.asarray(src, dtype=jnp.float32)
     win = jnp.asarray(win, dtype=jnp.float32)
@@ -171,48 +56,16 @@ def axpy_windowed(dst, src, win, gain=1.0,
         )
     if dst.size == 0:
         return dst
-    if not _dispatch_pallas(dst.size, use_pallas):
-        return axpy_windowed_reference(dst, src, win, gain)
-    return _axpy_windowed_pallas(dst, src, win, gain, _use_interpret())
-
-
-# --- normalize_and_clear: out = acc/max(norm, eps) (kernels.cc:30-36) ---
-
-
-def _normalize_kernel(acc_ref, norm_ref, eps_ref, out_ref, cleared_ref):
-    out_ref[:] = acc_ref[:] / jnp.maximum(norm_ref[:], eps_ref[0])
-    cleared_ref[:] = jnp.zeros_like(acc_ref)
+    return _axpy_windowed(dst, src, win, gain)
 
 
 @jax.jit
-def normalize_and_clear_reference(acc, norm, eps):
+def _normalize_and_clear(acc, norm, eps):
     out = acc / jnp.maximum(norm, jnp.float32(eps))
     return out, jnp.zeros_like(acc)
 
 
-@partial(jax.jit, static_argnames=("interpret",))
-def _normalize_pallas(acc, norm, eps, interpret):
-    n = acc.shape[-1]
-    a2, rows = _pad_rows(acc)
-    n2, _ = _pad_rows(norm)
-    grid, tile = _grid_rows(rows)
-    spec = pl.BlockSpec((tile, _LANES), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    out, cleared = pl.pallas_call(
-        _normalize_kernel,
-        out_shape=(
-            jax.ShapeDtypeStruct(a2.shape, a2.dtype),
-            jax.ShapeDtypeStruct(a2.shape, a2.dtype),
-        ),
-        grid=(grid,),
-        in_specs=[spec, spec, pl.BlockSpec(memory_space=pltpu.SMEM)],
-        out_specs=(spec, spec),
-        interpret=interpret,
-    )(a2, n2, jnp.asarray([eps], dtype=jnp.float32))
-    return out.reshape(-1)[:n], cleared.reshape(-1)[:n]
-
-
-def normalize_and_clear(acc, norm, eps=1e-8,
-                        use_pallas: Optional[bool] = None):
+def normalize_and_clear(acc, norm, eps=1e-8):
     """Returns (out, cleared_acc): the fused divide-and-zero drain pass that
     lets the OLA ring be reused (reference: kernels.cc:30-36)."""
     acc = jnp.asarray(acc, dtype=jnp.float32)
@@ -221,9 +74,7 @@ def normalize_and_clear(acc, norm, eps=1e-8,
         raise ValueError(f"shape mismatch {acc.shape} vs {norm.shape}")
     if acc.size == 0:
         return acc, acc
-    if not _dispatch_pallas(acc.size, use_pallas):
-        return normalize_and_clear_reference(acc, norm, eps)
-    return _normalize_pallas(acc, norm, eps, _use_interpret())
+    return _normalize_and_clear(acc, norm, eps)
 
 
 # --- dispatch introspection (reference: kernels.cc:58-147) ---
@@ -232,12 +83,8 @@ def normalize_and_clear(acc, norm, eps=1e-8,
 def kernel_dispatch_info() -> Dict[str, object]:
     dev = jax.devices()[0]
     return {
-        "backend": jax.default_backend(),
-        "device_kind": dev.device_kind,
         "platform": dev.platform,
-        "pallas_compiled": not _use_interpret(),
-        "vpu_tile": (_SUBLANES, _LANES),
-        "min_pallas_n": _MIN_PALLAS_N,
+        "device_kind": dev.device_kind,
         "num_devices": len(jax.devices()),
     }
 

@@ -6,7 +6,7 @@ it, including negative k so wrap-around positions get full coverage
 (norm_builder.cc:8-52). The builder stores the raw physical sum; the eps guard
 happens at consumption (norm_builder.h:19).
 
-TPU-first formulation (SURVEY.md §2.8): when the ring length is hop-aligned
+Batched formulation (SURVEY.md §2.8): when the ring length is hop-aligned
 (the accumulator guarantees this, OLAAccumulator.cc:249-258) the full-coverage
 sum is periodic with period `hop`:
 

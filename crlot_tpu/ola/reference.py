@@ -1,7 +1,7 @@
 """Pure-jnp overlap-add: the batched/offline OLA formulation.
 
 Reference: dsp/ola/OLAAccumulator.{h,cc} — but instead of a serial per-frame
-`ring.split + axpy` loop, the TPU formulation (SURVEY.md §2.9 / §7 "hard
+`ring.split + axpy` loop, the batched formulation (SURVEY.md §2.9 / §7 "hard
 parts") reshapes each frame into R = ceil(N/H) hop-blocks and performs R
 shifted block-adds:
 

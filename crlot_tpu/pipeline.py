@@ -1,10 +1,10 @@
 """Single-device STFT / iSTFT / round-trip pipeline.
 
 Reference workload: bench/e2e_benchmark.cc:138-186 (streaming) and
-bench/performance_benchmark.cc:174-246 (offline batch) — the TPU formulation
-is the offline batch shape: all frames as one [F, N] matrix -> one batched
-rFFT -> spectral processing -> one batched irFFT -> one vectorized OLA
-(SURVEY.md §3.5: "the natural batched/TPU formulation").
+bench/performance_benchmark.cc:174-246 (offline batch) — the accelerator
+formulation is the offline batch shape: all frames as one [F, N] matrix ->
+one batched rFFT -> spectral processing -> one batched irFFT -> one
+vectorized OLA (SURVEY.md §3.5).
 
 Single-window discipline (SURVEY.md §7): `stft` applies the analysis window
 exactly once; `istft` divides by the matching COLA norm (sum w, or sum w^2
@@ -14,7 +14,6 @@ when a synthesis window is configured). The reference's double-window bug
 
 from __future__ import annotations
 
-import os
 from functools import lru_cache, partial
 from typing import Callable, Optional
 
@@ -25,7 +24,7 @@ import numpy as np
 from .core.types import StftConfig
 from .fft import dispatch as _fft
 from .frame.framing import frame_windowed
-from .ola.fused import ola_normalized_auto
+from .ola.fused import ola_normalized
 from .ola.norm import edge_norm
 from .window.windows import get_window
 
@@ -110,7 +109,7 @@ def istft(
     if length is None:
         length = full - 2 * pad
     norm = jnp.asarray(_norm_np(cfg, num_frames, full))
-    out = ola_normalized_auto(frames, norm, cfg.hop_size, full, cfg.eps)
+    out = ola_normalized(frames, norm, cfg.hop_size, full, cfg.eps)
     return out[..., pad : pad + length]
 
 
@@ -140,10 +139,9 @@ def blocked_composed_round_trip(
     signal: jnp.ndarray, cfg: StftConfig, per_bin: np.ndarray
 ) -> jnp.ndarray:
     """round_trip's blocked (hop-block Toeplitz) branch as a standalone,
-    gate-free program: the formulation the TPU identity/EQ headline runs
-    (docs/DESIGN.md 'blocked identity'), exposed so the chunked blocked
-    streamers (streaming_pipeline) and CPU tests can target the EXACT
-    one-shot program their bit-exactness claims reference. Caller
+    gate-free program (docs/DESIGN.md 'blocked identity'), exposed so the
+    chunked blocked streamers (streaming_pipeline) and CPU tests can target
+    the EXACT one-shot program their bit-exactness claims reference. Caller
     contract: composed_block_supported(N, hop) and
     num_frames >= 2*(N/hop - 1)."""
     from .core.padding import pad_signal
@@ -183,235 +181,29 @@ def round_trip(
 
     With spectral_fn=None this is the reference's identity round-trip
     (bench/e2e_benchmark.cc:161-163) and must reconstruct at > 60 dB SNR.
-    On the matmul-FFT path, the identity round-trip keeps the spectrum in
-    packed-real layout (forward output feeds the inverse basis directly),
-    skipping complex64 interleave/deinterleave.
+    Identity and fixed per-bin responses (EQ, FIR, fractional delay) run as
+    the blocked hop-block Toeplitz matmuls where `fft.dispatch.blocked_route`
+    picks them and the shape allows (`blocked_composed_round_trip`);
+    everything else runs stft -> fn -> istft.
     """
-    import jax
-
-    from .core.types import FftBackend, FftPrecision
-    from .fft.matmul_backend import (
-        MAX_MATMUL_NFFT,
-        roundtrip_folded_matmul,
-        roundtrip_folded_tiled,
-        roundtrip_packed_matmul,
-        tiled_supported,
-    )
-    from .frame.framing import frame_signal
-    from .ola.fused import ola_normalized_auto
-
-    signal = jnp.asarray(signal)
-    on_tpu = jax.default_backend() == "tpu"
-    matmul_ok = cfg.fft_backend in (FftBackend.AUTO, FftBackend.MATMUL)
-
-    def norm_crop(acc, num_frames):
-        """Shared COLA-normalize + center-crop epilogue for an already
-        OLA-accumulated signal of length full."""
-        pad = cfg.frame_spec.pad_amount
-        full = (num_frames - 1) * cfg.hop_size + cfg.frame_size
-        norm = jnp.asarray(_norm_np(cfg, num_frames, full))
-        out = acc / jnp.maximum(norm, cfg.eps)
-        return out[..., pad : pad + signal.shape[-1]]
-
-    def ola_tail(out_frames, num_frames):
-        """Shared overlap-add + COLA-normalize + center-crop epilogue."""
-        pad = cfg.frame_spec.pad_amount
-        full = (num_frames - 1) * cfg.hop_size + cfg.frame_size
-        norm = jnp.asarray(_norm_np(cfg, num_frames, full))
-        out = ola_normalized_auto(
-            out_frames, norm, cfg.hop_size, full, cfg.eps
-        )
-        return out[..., pad : pad + signal.shape[-1]]
-    if (
-        spectral_fn is None
-        and cfg.fused_roundtrip
-        and matmul_ok
-        and on_tpu
-        and cfg.fft_precision == FftPrecision.HIGH
-    ):
-        from .core.padding import pad_signal
-        from .fft.pallas_rt import fused_rt_supported, roundtrip_frames_fused
-
-        if fused_rt_supported(cfg.frame_size, cfg.hop_size):
-            spec = cfg.frame_spec
-            num_frames = spec.num_frames(signal.shape[-1])
-            padded = pad_signal(
-                signal, spec.pad_amount, spec.pad_amount, spec.pad_mode,
-                spec.pad_value,
-            )
-            w64 = _window_f64(cfg)
-            out_frames = roundtrip_frames_fused(
-                padded, cfg.frame_size, cfg.hop_size, num_frames, w64
-            )
-            if cfg.synthesis_window:
-                out_frames = out_frames * jnp.asarray(_window_np(cfg))
-            return ola_tail(out_frames, num_frames)
+    from .fft.matmul_backend import MAX_MATMUL_NFFT, composed_block_supported
     from .spectral import resolve_per_bin_response
 
-    # A fixed per-bin spectral fn (EQ / FIR response / fractional delay /
-    # allpass — real or complex curve) composes with the DFT bases into
-    # ONE [N, N] round-trip matrix
-    # (matmul_backend.roundtrip_composed_matmul) — cheaper than identity.
-    per_bin = (
-        resolve_per_bin_response(spectral_fn, cfg.frame_size)
-        if cfg.frame_size <= MAX_MATMUL_NFFT
-        else None
-    )
-    use_packed = (
-        (spectral_fn is None or per_bin is not None)
-        and matmul_ok
-        and cfg.frame_size <= MAX_MATMUL_NFFT
-        and on_tpu
-    )
-    if use_packed:
-        w64 = _window_f64(cfg)
-        if per_bin is None and spectral_fn is None:
-            # IDENTITY also lowers to the blocked kernel (per-bin ones):
-            # folding the OLA into the hop-block Toeplitz kernel halves
-            # FLOPs/sample (2048 vs ~4100 MACs) and removes the [F, N]
-            # frame matrix, lifting arithmetic intensity ~6x — measured
-            # 10.59 Gsamples/s vs the tiled path's 2.91 in the SAME
-            # contended half-rate windows (3.6x; scripts/compare_rt.py
-            # 2026-08-21, docs/DESIGN.md 'blocked identity'). Promote only
-            # when the blocked gate fully holds — the composed fallback
-            # would be slower than tiled for identity.
-            from .fft.matmul_backend import composed_block_supported
-
-            spec_ = cfg.frame_spec
-            if (
-                composed_block_supported(cfg.frame_size, cfg.hop_size)
-                and spec_.num_frames(signal.shape[-1])
-                >= 2 * (cfg.frame_size // cfg.hop_size - 1)
-                and os.environ.get("CRLOT_BLOCKED_IDENTITY", "1") != "0"
-            ):
-                per_bin = np.ones(cfg.frame_size // 2 + 1)
+    signal = jnp.asarray(signal)
+    n, hop = cfg.frame_size, cfg.hop_size
+    if (
+        n <= MAX_MATMUL_NFFT
+        and _fft.blocked_route(cfg.fft_backend, n, hop)
+        and composed_block_supported(n, hop)
+        and cfg.frame_spec.num_frames(signal.shape[-1]) >= 2 * (n // hop - 1)
+    ):
+        per_bin = (
+            np.ones(n // 2 + 1)
+            if spectral_fn is None
+            else resolve_per_bin_response(spectral_fn, n)
+        )
         if per_bin is not None:
-            from .fft.matmul_backend import composed_block_supported
-
-            spec_ = cfg.frame_spec
-            num_frames = spec_.num_frames(signal.shape[-1])
-            if (
-                composed_block_supported(cfg.frame_size, cfg.hop_size)
-                and num_frames >= 2 * (cfg.frame_size // cfg.hop_size - 1)
-            ):
-                return blocked_composed_round_trip(signal, cfg, per_bin)
-            # Always the f32 composed path, regardless of tier: the int8
-            # variant (int8_backend.roundtrip_composed_i8) loses SNR on
-            # near-diagonal circulants and could dip below the 60 dB bar
-            # for near-identity responses — it stays an explicit call.
-            from .fft.matmul_backend import roundtrip_composed_matmul
-
-            frames = frame_signal(signal, cfg.frame_spec)
-            out_frames = roundtrip_composed_matmul(
-                frames, cfg.frame_size, w64, per_bin,
-                w64 if cfg.synthesis_window else None,
-                precision=_fft.to_lax_precision(cfg.fft_precision),
-            )
-            return ola_tail(out_frames, frames.shape[-2])
-        frames = frame_signal(signal, cfg.frame_spec)
-        if tiled_supported(cfg.frame_size):
-            if cfg.fft_precision == FftPrecision.INT8X2:
-                from .fft.int8_backend import roundtrip_folded_tiled_i8
-
-                out_frames = roundtrip_folded_tiled_i8(
-                    frames, cfg.frame_size, w64,
-                    w64 if cfg.synthesis_window else None,
-                    per_bin_gains_f64=per_bin,
-                )
-            else:
-                out_frames = roundtrip_folded_tiled(
-                    frames, cfg.frame_size, w64,
-                    w64 if cfg.synthesis_window else None,
-                    precision=_fft.to_lax_precision(cfg.fft_precision),
-                    per_bin_gains_f64=per_bin,
-                )
-        else:
-            rt = (
-                roundtrip_folded_matmul
-                if cfg.frame_size % 2 == 0
-                else roundtrip_packed_matmul
-            )
-            out_frames = rt(
-                frames, cfg.frame_size, w64,
-                w64 if cfg.synthesis_window else None,
-                precision=_fft.to_lax_precision(cfg.fft_precision),
-            )
-        return ola_tail(out_frames, frames.shape[-2])
-    if (
-        spectral_fn is not None
-        and hasattr(spectral_fn, "packed")
-        and matmul_ok
-        and on_tpu
-        and not cfg.synthesis_window
-        and cfg.fft_precision == FftPrecision.HIGH
-        and os.environ.get("CRLOT_FUSED_SPECTRAL", "1") != "0"
-    ):
-        # NONLINEAR per-bin fns: the fused Pallas kernel applies the fn on
-        # the packed Re/Im planes IN VMEM between the forward and inverse
-        # folded matmuls — the spectrum never reaches HBM, vs four [F, K]
-        # HBM arrays on the XLA packed route. Promoted on 3/3
-        # valid-sentinel interleaved runs (0.821 vs 1.192 ms in a
-        # FULL-RATE window — sentinel blocked2_id at 14.8 G — plus 1.9x
-        # and 4.6x in two earlier windows; docs/DESIGN.md 'r4: the
-        # nonlinear spectral slot'). Escape hatch: CRLOT_FUSED_SPECTRAL=0.
-        from .core.padding import pad_signal
-        from .fft.pallas_rt import fused_rt_supported, roundtrip_signal_fused
-
-        spec_ = cfg.frame_spec
-        num_frames = spec_.num_frames(signal.shape[-1])
-        if fused_rt_supported(cfg.frame_size, cfg.hop_size) and num_frames > 0:
-            padded = pad_signal(
-                signal, spec_.pad_amount, spec_.pad_amount, spec_.pad_mode,
-                spec_.pad_value,
-            )
-            w64 = _window_f64(cfg)
-            full = (num_frames - 1) * cfg.hop_size + cfg.frame_size
-            norm = jnp.asarray(_norm_np(cfg, num_frames, full))
-            try:
-                out = roundtrip_signal_fused(
-                    padded, cfg.frame_size, cfg.hop_size, num_frames, w64,
-                    norm, cfg.eps, spectral_packed=spectral_fn.packed,
-                )
-                pad = spec_.pad_amount
-                return out[..., pad : pad + signal.shape[-1]]
-            except Exception:  # noqa: BLE001
-                # A fn the kernel tracer cannot host (exotic ops,
-                # un-hoistable closure state) falls back to the XLA
-                # packed route below rather than crashing the pipeline.
-                pass
-    if (
-        spectral_fn is not None
-        and hasattr(spectral_fn, "packed")
-        and matmul_ok
-        and on_tpu
-        and tiled_supported(cfg.frame_size)
-    ):
-        # NONLINEAR per-bin fns (gate, spectral subtraction) that operate
-        # on packed Re/Im planes skip the complex64 interleave/deinterleave
-        # (two full passes over the spectrum each way on TPU).
-        from .fft.matmul_backend import (
-            irfft_folded_tiled_parts,
-            packed_to_tiled_parts,
-            rfft_folded_tiled_parts,
-            tiled_parts_to_packed,
-        )
-
-        frames = frame_signal(signal, cfg.frame_spec)
-        w64 = _window_f64(cfg)
-        prec = _fft.to_lax_precision(cfg.fft_precision)
-        re512, re_nyq, im_eff = rfft_folded_tiled_parts(
-            frames, cfg.frame_size, jnp.asarray(_window_np(cfg)), prec
-        )
-        re, im = spectral_fn.packed(*tiled_parts_to_packed(
-            re512, re_nyq, im_eff
-        ))
-        out_frames = irfft_folded_tiled_parts(
-            *packed_to_tiled_parts(re, im, cfg.frame_size),
-            cfg.frame_size, prec,
-        )
-        if cfg.synthesis_window:
-            out_frames = out_frames * jnp.asarray(_window_np(cfg))
-        return ola_tail(out_frames, frames.shape[-2])
+            return blocked_composed_round_trip(signal, cfg, per_bin)
     spec = stft(signal, cfg)
     if spectral_fn is not None:
         spec = spectral_fn(spec)

@@ -18,22 +18,28 @@ from typing import Iterator, Optional
 
 import jax
 
-# Published HBM bandwidth / peak compute by device kind (per-chip).
+# Published dense peaks per device, keyed by the exact `device_kind` JAX
+# reports: (hbm_bytes_per_sec, bf16_flops, tf32_flops, f32_flops).
+# Source: NVIDIA H100 Tensor Core GPU data sheet, SXM5 column, dense
+# (without sparsity), at the 700 W power limit: 3.35 TB/s HBM3, 989 TFLOP/s
+# bf16, 495 TFLOP/s TF32, 67 TFLOP/s fp32 outside the tensor cores. The
+# PCIe part (2.0 TB/s, other rates) reports another device_kind and is not
+# matched.
 _DEVICE_SPECS = {
-    # device_kind substring: (hbm_bytes_per_sec, bf16_flops, f32_flops)
-    "TPU v5 lite": (819e9, 197e12, 98e12),   # v5e (197 TF bf16; 394 is int8)
-    "TPU v5": (1228e9, 459e12, 115e12),      # v5p (fallback match after v5e)
-    "TPU v4": (1200e9, 275e12, 69e12),
-    "TPU v6": (1640e9, 918e12, 230e12),      # trillium
+    "NVIDIA H100 80GB HBM3": (3.35e12, 989e12, 495e12, 67e12),
 }
 
 
 def device_specs(kind: Optional[str] = None):
+    """(hbm_bytes_per_sec, bf16, tf32, f32 flops) of `kind` (default: JAX's
+    first device). A device that is not in the table raises KeyError."""
     kind = kind or jax.devices()[0].device_kind
-    for sub, spec in _DEVICE_SPECS.items():
-        if sub in kind:
-            return spec
-    return (100e9, 1e12, 5e11)  # conservative unknown-device fallback
+    if kind not in _DEVICE_SPECS:
+        raise KeyError(
+            f"no published peaks for device kind {kind!r}; known: "
+            f"{sorted(_DEVICE_SPECS)}"
+        )
+    return _DEVICE_SPECS[kind]
 
 
 @dataclass(frozen=True)
@@ -59,8 +65,8 @@ def roundtrip_traffic(
     2*N*(N+2) MACs; FFT is 5*N*log2(N) per direction.
 
     `formulation="spectral"`: the framed NONLINEAR per-bin path (packed
-    Re/Im planes through an arbitrary elementwise spectral fn —
-    pipeline.round_trip's `.packed` route). Same folded-DFT FLOPs as
+    Re/Im planes through an arbitrary elementwise spectral fn — the
+    `.packed` route of the sharded and streaming matmul paths). Same folded-DFT FLOPs as
     "framed" plus the fn's elementwise work; bytes add one spectrum
     read+write pass for the fn (XLA cannot fuse an elementwise stage
     INTO a dot operand, so the fn's output is a materialized [F, K]
@@ -74,8 +80,8 @@ def roundtrip_traffic(
     negative result (docs/DESIGN.md r4).
 
     `formulation="blocked"`: the hop-block Toeplitz round-trip
-    (matmul_backend.roundtrip_composed_blocked — the TPU identity/EQ path
-    since r3). Per output sample the kernel row spans
+    (matmul_backend.roundtrip_composed_blocked — the GPU identity/EQ path
+    for 256 <= N <= 1024 at 4 <= N/hop <= 8). Per output sample the kernel row spans
     (R + G - 2)*hop + N input samples (R = N/hop), i.e. 2048 MACs at the
     headline config vs the framed formulation's ~4100, with NO frame
     matrix: the mg = ceil(kernel_height / (G*hop)) matmul terms each read
@@ -130,10 +136,11 @@ def roofline_samples_per_sec(
     """Speed-of-light samples/s for the round-trip on this device: the min of
     the HBM-bandwidth bound and the compute bound, with both reported.
 
-    precision: 'high' (bf16x3 DFT matmuls, the pipeline default — compute
-    peak ~ bf16/3) or 'highest' (bf16x6 ~ f32 peak).
+    precision: 'high' (FftPrecision.HIGH = three bf16 passes per f32
+    matmul, compute peak bf16/3) or 'highest' (FftPrecision.HIGHEST = true
+    f32, the f32 peak).
     """
-    hbm, bf16, f32 = device_specs(device_kind)
+    hbm, bf16, _tf32, f32 = device_specs(device_kind)
     t = roundtrip_traffic(frame_size, hop, matmul_fft, folded,
                           formulation, group)
     compute_peak = bf16 / 3.0 if precision == "high" else f32
@@ -151,7 +158,7 @@ def roofline_samples_per_sec(
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/crlot_trace") -> Iterator[None]:
+def trace(log_dir: str) -> Iterator[None]:
     """jax.profiler trace scope; open with xprof/tensorboard."""
     jax.profiler.start_trace(log_dir)
     try:
@@ -179,7 +186,7 @@ def environment_info() -> dict:
             ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
             timeout=5,
         ).stdout.strip()
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
         git = "unknown"
     dev = jax.devices()[0]
     return {
@@ -194,9 +201,4 @@ def environment_info() -> dict:
 
 
 if __name__ == "__main__":
-    info = environment_info()
-    info["roofline_n1024_h256"] = {
-        k: round(v, 2) if isinstance(v, (int, float)) else v
-        for k, v in roofline_samples_per_sec(1024, 256).items()
-    }
-    print(json.dumps(info, indent=1))
+    print(json.dumps(environment_info(), indent=1))

@@ -1,13 +1,10 @@
 """Polyphase FIR resampler (replaces the reference demo's r8brain usage).
 
 Reference: main/main.cc:238-352 streams r8brain's CDSPResampler in 4096-sample
-chunks; BASELINE.json replaces it with "a polyphase FIR resampler as a
-[TPU] kernel". Design per SURVEY.md §7 step 6: windowed-sinc (Kaiser) designed
-in float64 on the host, executed as ONE grouped Toeplitz matmul on the MXU
-(G output blocks per matmul row), which is the TPU-native form of a
-polyphase filter bank. An earlier `lax.conv` formulation is gone: XLA's TPU
-conv lowering never finished compiling the pure-decimation shape and falls
-off the MXU fast path at other DSP shapes (docs/DESIGN.md).
+chunks; BASELINE.json replaces it with a polyphase FIR resampler on the
+device. Design per SURVEY.md §7 step 6: windowed-sinc (Kaiser) designed in
+float64 on the host, executed as ONE grouped Toeplitz matmul (G output
+blocks per matmul row), the matrix form of a polyphase filter bank.
 
 Math. For rational rate L/M (reduced), with h a lowpass at the L-upsampled
 rate (gain L, group delay G ticks, h centered):
@@ -109,7 +106,7 @@ def _grouped_kernel(
     """Toeplitz expansion of the kernel bank over G consecutive L-blocks:
     K2[r, j*L + i] = bank[i, r - j*M], span = (G-1)*M + W. One output row
     covers G*L output samples from span input samples — the resampler
-    becomes a single well-shaped [B, span] x [span, G*L] MXU matmul.
+    becomes a single well-shaped [B, span] x [span, G*L] matmul.
     Returns (K2 f32, tau_min, span)."""
     bank, tau_min, w = _kernel_bank(l, m, taps_per_phase, atten_db)
     span = (g - 1) * m + w
@@ -135,11 +132,7 @@ def _resample_impl(
 ) -> jnp.ndarray:
     """Polyphase resample as ONE grouped Toeplitz matmul.
 
-    Earlier formulation was a strided `lax.conv_general_dilated`; on the
-    TPU backend the pure-decimation shape (L == 1, e.g. 48k -> 16k) never
-    finishes compiling, and DESIGN.md records XLA's TPU conv lowering
-    abandoning the MXU fast path at other DSP shapes (180x-slow composed
-    conv). The matmul form is shape-robust: y[(b*G+j)*L + i] =
+    The matmul form is shape-robust: y[(b*G+j)*L + i] =
     sum_r X[b, r] * K2[r, j*L+i] with X[b] = x_padded[b*G*M : +span]."""
     g = _group_count(l)
     k2_np, tau_min, span = _grouped_kernel(l, m, taps_per_phase, atten_db, g)
@@ -155,8 +148,11 @@ def _resample_impl(
     xp = jnp.pad(x, ((0, 0), (pad_left, pad_right)))
     idx = jnp.arange(blocks)[:, None] * (g * m) + jnp.arange(span)[None, :]
     frames = jnp.take(xp, idx, axis=-1)  # [C, B, span]
+    # True f32: an unspecified f32 dot runs in TF32 on the GPU, 72 dB from
+    # scipy's float64 resample_poly on an H100 instead of 133 dB.
     y = jnp.einsum(
-        "cbs,sr->cbr", frames, k2, preferred_element_type=jnp.float32
+        "cbs,sr->cbr", frames, k2, preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
     ).reshape(channels, blocks * row)
     return y[:, :n_out]
 

@@ -2,7 +2,7 @@
 
 The reference's e2e pipeline has an identity processing hook
 (bench/e2e_benchmark.cc:161-163 "(identity spectral processing)"); these are
-the batteries the TPU build ships for that hook: pure functions
+the batteries this build ships for that hook: pure functions
 `spec [..., F, K] -> spec` composable into `round_trip(spectral_fn=...)`.
 All are elementwise/banded and fuse into the surrounding FFT matmuls.
 

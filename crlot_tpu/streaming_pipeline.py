@@ -93,9 +93,7 @@ def streaming_round_trip_blocks(
         # pipeline's blocked Toeplitz form folds the OLA into the kernel,
         # which conflicts with the scan's carried OLA tail — composed is
         # the streaming-safe formulation) — with no complex
-        # interleave (same lowerings as pipeline.round_trip's TPU path,
-        # so chunked-stream output stays consistent with the offline one);
-        # other cases go through rfft -> spectral_fn -> irfft.
+        # interleave; other cases go through rfft -> spectral_fn -> irfft.
         if per_bin is not None:
             out_f = roundtrip_composed_matmul(
                 frames, n, window_f64, per_bin, syn64, precision=prec
@@ -157,12 +155,11 @@ def streaming_round_trip_blocks(
 
 
 # ---------------------------------------------------------------------------
-# Blocked (hop-block Toeplitz) chunk streaming — r5.
+# Blocked (hop-block Toeplitz) chunk streaming.
 #
-# The r4 verdict's top finding: the 16.4 Gsamples/s blocked one-shot
-# formulation (pipeline.blocked_composed_round_trip) was fenced out of every
-# streaming path, leaving the sustained device-resident stream 26x slower on
-# the same chip. The blocked kernel is overlap-save-shaped — output block bg
+# The blocked one-shot formulation (pipeline.blocked_composed_round_trip)
+# runs in the chunk streamers too. The blocked kernel is
+# overlap-save-shaped — output block bg
 # reads input [bg*gh - left_ctx, bg*gh - left_ctx + mg*gh) — so the chunk
 # protocol it wants is exactly halo-extended chunks: carry `left_ctx`
 # look-back and `right_ctx` look-ahead of REAL neighbor samples
@@ -181,17 +178,12 @@ def streaming_round_trip_blocks(
 
 
 def _resolve_blocked_per_bin(cfg: StftConfig, spectral_fn):
-    """Per-bin response bytes for the blocked stream (ones for identity,
-    honoring the CRLOT_BLOCKED_IDENTITY escape hatch), or None when the
-    spectral fn is not a fixed per-bin response."""
-    import os
-
+    """Per-bin response bytes for the blocked stream (ones for identity),
+    or None when the spectral fn is not a fixed per-bin response."""
     from .spectral import resolve_per_bin_response
 
     n = cfg.frame_size
     if spectral_fn is None:
-        if os.environ.get("CRLOT_BLOCKED_IDENTITY", "1") == "0":
-            return None
         per_bin = np.ones(n // 2 + 1)
     else:
         per_bin = resolve_per_bin_response(spectral_fn, n)
@@ -303,12 +295,12 @@ def _blocked_stream_consts(cfg: StftConfig, rb: bytes) -> dict:
 def blocked_stream_supported(
     cfg: StftConfig, chunk_samples=None, spectral_fn=None
 ) -> bool:
-    """Gate for the blocked chunk streamer: matmul backend pick, supported
-    (N, hop), per-bin (or identity) response, and — when chunk_samples is
+    """Gate for the blocked chunk streamer: the blocked route
+    (`fft.dispatch.blocked_route`), supported (N, hop), per-bin (or
+    identity) response, and — when chunk_samples is
     given — G*hop-aligned chunks long enough that the head/tail patches
     never overlap (S >= 2*edge + N covers even a single-chunk stream's
     num_frames >= 2*(R-1) one-shot gate)."""
-    from .core.types import FftBackend
     from .fft.matmul_backend import (
         blocked_chunk_geometry,
         composed_block_supported,
@@ -317,7 +309,7 @@ def blocked_stream_supported(
     n, hop = cfg.frame_size, cfg.hop_size
     if cfg.center:
         return False
-    if _fft._pick(cfg.fft_backend, n) != FftBackend.MATMUL:
+    if not _fft.blocked_route(cfg.fft_backend, n, hop):
         return False
     if not composed_block_supported(n, hop):
         return False
@@ -340,9 +332,10 @@ class BlockedChunkStreamer:
     the reconstructed PREDECESSOR chunk — one chunk of latency, since the
     kernel's look-ahead needs the successor's head) and drain the last
     chunk with `finish()`. Concatenated output over the whole stream is
-    BIT-identical to `pipeline.blocked_composed_round_trip` (== the
-    center=False round_trip identity/EQ headline path on TPU) over the
-    unbroken stream — asserted in tests/test_streaming_pipeline.py.
+    BIT-identical to `pipeline.blocked_composed_round_trip` (the
+    center=False round_trip identity/EQ path wherever `blocked_route`
+    picks it) over the unbroken stream — asserted in
+    tests/test_streaming_pipeline.py.
     The carried state (previous chunk + left_ctx tail + head flag) is a
     dict of numpy arrays: `state()`/`load_state()` checkpoint a multi-hour
     stream and resume bit-identically in a fresh process.

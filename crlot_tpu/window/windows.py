@@ -4,7 +4,7 @@ Reference: dsp/window/WindowLUT.{h,cc}. Windows are computed in float64 and
 cast to float32 (WindowLUT.cc:256-315), keyed-cached process-wide
 (WindowLUT.cc:75-105), and optionally normalized (WindowLUT.cc:317-388).
 
-TPU mapping (SURVEY.md §2.5): the generation/shared_ptr/mutex machinery of the
+JAX mapping (SURVEY.md §2.5): the generation/shared_ptr/mutex machinery of the
 reference is a C++ lifetime concern with no JAX analog — the cache here is a
 plain dict over immutable numpy arrays; windows become constants folded into
 jitted graphs. Semantics kept: same key -> same array object; `clear_cache()`

@@ -1,18 +1,13 @@
 """Born-int16 wire ingest: the blocked round-trip on integer-born operands.
 
-Production wiring of the r5 born-integer DFT tier probe
-(scripts/bench_i16_born_probe.py, docs/DESIGN.md "r5 postscript"): wire
-audio arrives int16 ON DEVICE, and the f32->int8 layout-change quantize
-that killed the general int8 tier (CLAUDE.md) vanishes when the operand is
-born integer — the int16 -> two-int8-limb split measured 3.6x CHEAPER than
-the f32 dequant it replaces, and the single-limb int8 blocked kernel then
-ran 2.6x the f32 blocked kernel (37.8 vs 14.4 Gsamples/s in an interleaved
-full-rate window).
+Wire audio arrives int16 on the device; splitting it into two int8 limbs is
+exact, so the blocked hop-block Toeplitz kernel can run as integer dots on
+the wire samples without a float dequantize.
 
 `I16BlockedStreamer` mirrors `streaming_pipeline.BlockedChunkStreamer`'s
 halo-extended chunk protocol (one chunk of latency, resumable state) but
 takes int16 chunks and runs the hop-block Toeplitz interior as int8xint8
--> int32 MXU dots on exact hi/lo limbs of the wire samples. Only the small
+-> int32 dots on exact hi/lo limbs of the wire samples. Only the small
 head/tail edge-patch regions (span_p samples at the stream ends) are
 dequantized to f32. Tiers:
 
@@ -21,17 +16,16 @@ dequantized to f32. Tiers:
                     ~90 dB below kmax; below the int16 wire noise floor
                     for identity, and >=60 dB for per-bin EQ responses).
   int8x1            single 8-bit kernel limb, 2 int8 dots per m-term —
-                    the throughput ceiling (measured 37.8 G). Safe for
-                    near-delta kernels (identity round-trips: the wire
-                    floor dominates, measured 95.4 dB either way); EQ
-                    responses flatten the rows and should use int8x2.
+                    the cheaper shape. Safe for near-delta kernels
+                    (identity round-trips: the wire floor dominates);
+                    EQ responses flatten the rows and should use int8x2.
 
 The integer interior is EXACTLY block-size invariant (int32 accumulation
 is associative), so chunked output is bit-identical across chunk sizes —
 asserted in tests/test_wire_i16.py.
 
 Reference anchor: the reference's hot loop is the streaming e2e bench
-(/root/reference/bench/e2e_benchmark.cc:138-186) fed from int16 WAV wire
+(bench/e2e_benchmark.cc:138-186) fed from int16 WAV wire
 data (io/wav.cc int16 path); the reference dequantizes on the host. Here
 the wire buffer lands on device as int16 and the dequant never happens.
 """

@@ -1,4 +1,4 @@
-"""Example: spectral noise gating of a WAV file on TPU.
+"""Example: spectral noise gating of a WAV file.
 
 Usage: python examples/denoise.py in.wav out.wav [--threshold-db -45]
 """

@@ -1,8 +1,7 @@
 """Example: mel-spectrogram / MFCC feature extraction from a WAV.
 
 The whole feature stack — framing, the matmul DFT, |.|^2, the mel
-filterbank matmul, dB, and the DCT matmul — runs as one jitted program of
-MXU matmuls per channel.
+filterbank matmul, dB, and the DCT matmul — runs as one jitted program per channel.
 
 Usage: python examples/extract_features.py in.wav out.npz [--n-mels 64]
                                            [--n-mfcc 13]

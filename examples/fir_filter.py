@@ -2,7 +2,7 @@
 
 A fixed FIR filter's frequency response (complex: magnitude AND phase)
 composes with the DFT bases into a single [N, N] matrix on the host, so
-the whole frame -> spectrum -> filter -> frame chain runs as ONE MXU
+the whole frame -> spectrum -> filter -> frame chain runs as ONE
 matmul per frame batch — cheaper than an identity round-trip.
 
 Usage: python examples/fir_filter.py in.wav out.wav [--cutoff-hz 4000]

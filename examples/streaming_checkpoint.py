@@ -7,7 +7,7 @@ from the last checkpoint, producing output bit-identical to an unbroken run
 (tests/test_checkpoint.py asserts this property).
 
 Usage: python examples/streaming_checkpoint.py in.wav out.npy \
-           [--ckpt /tmp/stream.ckpt.npz] [--crash-after-seconds S]
+           [--ckpt out/stream.ckpt.npz] [--crash-after-seconds S]
 """
 
 import argparse
@@ -41,7 +41,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("infile")
     ap.add_argument("outfile")
-    ap.add_argument("--ckpt", default="/tmp/stream.ckpt.npz")
+    ap.add_argument("--ckpt", default=os.path.join("out", "stream.ckpt.npz"))
     ap.add_argument("--frame-size", type=int, default=1024)
     ap.add_argument("--hop", type=int, default=256)
     ap.add_argument("--ckpt-every-seconds", type=float, default=2.0)

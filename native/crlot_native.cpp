@@ -1,8 +1,8 @@
-// crlot-tpu native runtime: host-side data-loader components in C++17.
+// Native runtime: host-side data-loader components in C++17.
 //
 // The reference implements its I/O and streaming layers natively (io/wav.cc
 // over dr_wav; dsp/frame/framer.cc; dsp/ring/ring_buffer.cc). This library is
-// the TPU build's equivalent host runtime: a WAV codec, a wrap-free ring
+// this build's equivalent host runtime: a WAV codec, a wrap-free ring
 // buffer, and a streaming framer that emits device-ready [frames, channels,
 // frame_size] batches. Exposed as a C ABI for ctypes.
 //

@@ -18,10 +18,6 @@ import sys
 # Must be set before jax import; override whatever the parent had.
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 os.environ.pop("JAX_PLATFORMS", None)
-# The blocked-formulation leg below must actually test the blocked path:
-# an inherited CRLOT_BLOCKED_IDENTITY=0 would silently fall back to the
-# masked-frame formulation (and fail the tight kernel comparison).
-os.environ["CRLOT_BLOCKED_IDENTITY"] = "1"
 
 import jax  # noqa: E402
 

@@ -131,8 +131,8 @@ def test_blocked_minimum_frames():
 def test_blocked_gate():
     assert composed_block_supported(1024, 256)
     assert composed_block_supported(1024, 512)
-    assert not composed_block_supported(1024, 192)  # hop not lane-aligned
-    assert not composed_block_supported(1000, 250)  # hop % 128 != 0
+    assert not composed_block_supported(1024, 192)  # hop does not divide N
+    assert composed_block_supported(1000, 250)  # any hop dividing N
     assert not composed_block_supported(1024, 1024)  # no overlap (R < 2)
     assert not composed_block_supported(8192, 512)  # beyond MAX_MATMUL_NFFT
     assert not composed_block_supported(1024, 300)  # hop does not divide N
@@ -141,8 +141,8 @@ def test_blocked_gate():
 def test_blocked_identity_matches_round_trip():
     """The r3 headline route: identity response (per-bin ones) through the
     blocked kernel must reconstruct the signal like the standard pipeline
-    (the TPU pipeline promotes spectral_fn=None to this kernel; on CPU the
-    promotion is off, so drive the kernel directly)."""
+    (round_trip takes this kernel for spectral_fn=None on the GPU; on the
+    CPU it does not, so drive the kernel directly)."""
     from crlot_tpu.core.types import StftConfig
     from crlot_tpu.metrics import snr_db
     from crlot_tpu.pipeline import _norm_np, round_trip

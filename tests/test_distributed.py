@@ -404,7 +404,7 @@ def test_sharded_blocked_eq_mesh_consistency(channel, time):
     """N-device blocked output vs 1 device: the OLA summation order is
     identical by construction; the only residual is the backend's
     within-row dot reduction order when the local matmul batch size
-    differs (<= ~2 ULP on CPU; batch-independent on the MXU)."""
+    differs (<= ~2 ULP on CPU)."""
     cfg, eq, x = _blocked_setup()
     one = np.asarray(sharded_round_trip(
         jnp.asarray(x), cfg, make_mesh(channel=1, time=1), eq))
@@ -460,7 +460,7 @@ def test_sharded_blocked_falls_back_when_unaligned():
 
 def test_stream_matches_oneshot_under_matmul_backend():
     """Formulation-consistent chunk-vs-one-shot bit-exactness under the
-    MATMUL backend (the TPU AUTO pick), BOTH ways since r5: the default
+    MATMUL backend (the GPU's AUTO pick at this N/hop), BOTH ways: the default
     streamer runs the BLOCKED formulation and must bit-match the blocked
     one-shot (the r4 verdict's top ask); allow_blocked=False runs the
     masked frame formulation and must bit-match the masked one-shot."""
@@ -496,8 +496,8 @@ def test_stream_matches_oneshot_under_matmul_backend():
 def test_blocked_stream_eq_and_checkpoint_mesh():
     """Blocked mesh streamer with a per-bin EQ: head/tail patch regions are
     BIT-exact vs the blocked one-shot (mesh-independent patch op shapes);
-    interior within the CPU batch-order ULP caveat (MXU bit-exact, gated
-    on-device by the bench suite). Checkpoint resume mid-stream must be
+    interior within the CPU batch-order ULP caveat. Checkpoint resume
+    mid-stream must be
     bit-identical to the unbroken blocked stream."""
     import crlot_tpu.spectral as sp
     from crlot_tpu.core.types import FftBackend
@@ -556,29 +556,34 @@ def test_streamer_feed_after_finish_raises():
     st2.feed(c)  # no raise
 
 
-def test_blocked_mesh_main_dots_independent_of_halo_permutes():
-    """Comm/compute overlap, structurally (verdict r3 item 1a): in the
-    blocked mesh formulation the main hop-block matmul chain must carry NO
-    data dependence on the halo ppermutes — only the small edge
-    corrections and boundary patches may consume them. That independence
-    is what lets XLA's latency-hiding scheduler issue
-    collective-permute-start before the local dots (the overlap bound the
-    weak-scaling model gates on). Asserted by tainting the ppermute
-    outputs through the shard_map jaxpr and requiring >= 75% of
-    dot_general MACs to be untainted."""
-    from crlot_tpu.distributed.sharded_pipeline import overlap_dot_fraction
-
+def test_blocked_mesh_dots_take_whole_blocks():
+    """Every dot of the blocked mesh formulation covers the device's whole
+    block (C_local x t_block / (G*hop) rows), as `hopblock_apply` does on
+    one device: no dot holds only the rows that read a halo. On the GPU a
+    dot with one row per channel is compiled without its requested dot
+    algorithm and runs in TF32."""
     cfg, eq, _ = _blocked_setup()
     mesh = make_mesh(channel=1, time=4)
-    ov = overlap_dot_fraction(cfg, mesh, channels=2, total_len=32768,
-                              spectral_fn=eq)
-    assert ov["ppermute_ops"] == 2, ov
-    assert ov["dot_macs_independent_of_halo"] > 0
-    assert ov["independent_fraction"] >= 0.75, (
-        f"only {ov['independent_fraction']:.2%} of dot MACs are "
-        "independent of the halo permutes — the main chain must not "
-        "consume the halos"
-    )
+    channels, total_len = 2, 32768
+    jaxpr = jax.make_jaxpr(
+        lambda v: sharded_round_trip(v, cfg, mesh, eq)
+    )(jnp.zeros((channels, total_len), jnp.float32))
+    (inner,) = [e.params["jaxpr"] for e in jaxpr.jaxpr.eqns
+                if e.primitive.name == "shard_map"]
+    gh = 2 * cfg.hop_size
+    block_rows = channels * (total_len // 4) // gh
+    rows = []
+    for eqn in inner.eqns:
+        if eqn.primitive.name == "dot_general":
+            shape = eqn.invars[0].aval.shape
+            (lc, _), _ = eqn.params["dimension_numbers"]
+            rows.append(int(np.prod([d for i, d in enumerate(shape)
+                                     if i not in lc])))
+    r_count = cfg.frame_size // cfg.hop_size
+    patch_rows = channels * (r_count - 1)
+    assert rows, "no dot in the blocked mesh program"
+    # the bulk dots, plus the two edge patches' R-1 frames per channel
+    assert sorted(set(rows)) == [patch_rows, block_rows], rows
 
 
 def test_permute_bytes_regex_sync_and_async_hlo():

@@ -55,7 +55,7 @@ def test_dispatch_auto_on_cpu_uses_xla():
     x = jnp.ones((2, 512))
     a = np.asarray(rfft(x, 512, FftBackend.AUTO))
     b = np.asarray(jnp.fft.rfft(x, axis=-1))
-    np.testing.assert_array_equal(a, b)  # AUTO == XLA off-TPU
+    np.testing.assert_array_equal(a, b)  # a bare transform's AUTO is XLA
 
 
 def test_dispatch_matmul_forced():
@@ -272,3 +272,74 @@ def test_tiled_supported_predicate():
     assert not tiled_supported(128)  # h = 64 not lane-aligned
     assert not tiled_supported(1000)
     assert not tiled_supported(2 * MAX_MATMUL_NFFT)
+
+
+def _dot_algorithm(fn, *args):
+    """The dot algorithm of the single dot_general in fn's jaxpr."""
+    import jax
+
+    eqns = [e for e in jax.make_jaxpr(fn)(*args).jaxpr.eqns
+            if e.primitive.name == "dot_general"]
+    assert len(eqns) == 1, eqns
+    return eqns[0].params["precision"]
+
+
+@pytest.mark.parametrize("lhs_shape,want_x3", [
+    ((1, 64), False), ((1, 1, 64), False), ((64,), False),
+    ((2, 64), True), ((3, 1, 64), True),
+])
+def test_one_row_dot_never_runs_bf16x3(lhs_shape, want_x3):
+    """A matrix-vector product at BF16_BF16_F32_X3 is a single bf16 pass on
+    the GPU, so `_dot` hands one-row products F32_F32_F32 instead."""
+    import jax
+
+    from crlot_tpu.fft.matmul_backend import _dot
+
+    x3 = jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3
+    f32 = jax.lax.DotAlgorithmPreset.F32_F32_F32
+    got = _dot_algorithm(lambda a, b: _dot(a, b, x3),
+                         jnp.ones(lhs_shape), jnp.ones((64, 32)))
+    assert got == (x3 if want_x3 else f32), got
+
+
+def test_gpu_tiers_map_to_explicit_algorithms(monkeypatch):
+    """On a GPU each FftPrecision tier is one explicit dot algorithm (an
+    unspecified f32 dot may run in TF32 there); elsewhere every tier is
+    true f32."""
+    import jax
+
+    from crlot_tpu.core.types import FftPrecision
+    from crlot_tpu.fft import dispatch
+
+    presets = jax.lax.DotAlgorithmPreset
+    assert dispatch.to_lax_precision(FftPrecision.HIGH) == presets.F32_F32_F32
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert (dispatch.to_lax_precision(FftPrecision.HIGH)
+            == presets.BF16_BF16_F32_X3)
+    assert dispatch.to_lax_precision(FftPrecision.HIGHEST) == presets.F32_F32_F32
+    assert dispatch.to_lax_precision(None) is None
+
+
+def test_gpu_high_tier_runs_the_blocked_kernel_on_cpu():
+    """The GPU's HIGH algorithm (BF16_BF16_F32_X3) on the blocked route's
+    own dot shape, run here: it compiles for a dot of many rows and stays
+    within the tier's error (three bf16 passes: about 2^-16 relative per
+    product, far under the 60 dB round-trip gate)."""
+    from crlot_tpu.core.types import FftPrecision
+    from crlot_tpu.fft import dispatch
+    from crlot_tpu.fft.matmul_backend import _dot, hopblock_apply
+
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal((256, 512)).astype(np.float32)
+    b = rng.standard_normal((512, 512)).astype(np.float32)
+    want = a.astype(np.float64) @ b
+    high = dispatch._GPU_PRESETS[FftPrecision.HIGH]
+    got = np.asarray(_dot(jnp.asarray(a), b, high))
+    assert np.max(np.abs(got - want)) <= 2.0 ** -16 * np.max(np.abs(want))
+    x = rng.standard_normal((2, 8192)).astype(np.float32)
+    kern = rng.standard_normal((4 * 512, 512)).astype(np.float32) / 64
+    out = np.asarray(hopblock_apply(jnp.asarray(x), kern, 512, 8192, 768,
+                                    precision=high))
+    ref = np.asarray(hopblock_apply(jnp.asarray(x), kern, 512, 8192, 768))
+    assert out.shape == (2, 8192)
+    assert np.max(np.abs(out - ref)) <= 2.0 ** -14 * np.max(np.abs(ref))

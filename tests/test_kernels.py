@@ -1,11 +1,15 @@
-"""Pallas-kernel-vs-jnp-reference equivalence (reference: tests/kernels_test.cc).
+"""OLA flat-array kernels vs a numpy reference (reference: tests/kernels_test.cc).
 
 The reference checks every SIMD kernel against its scalar form within ±1 ULP
 across sizes straddling SIMD lane boundaries {0,1,7,15,16,17,...,4096}
-(kernels_test.cc:214-317, :375-428). TPU analog: Pallas (interpreted on CPU,
-compiled on TPU) vs jnp, sizes straddling the 8x128 VPU tile.
+(kernels_test.cc:214-317, :375-428). Here the jitted jnp kernels are checked
+against float32 numpy at the same sizes. XLA may contract `a + b*c` into one fused multiply-add,
+which skips the product's rounding, so the elementwise ops are checked
+against the exact (float64) value within the float32 rounding bound of
+their expression: half an ULP of the operand scale per rounded operation.
 """
 
+import jax
 import numpy as np
 import pytest
 
@@ -25,6 +29,12 @@ def _ulp_diff(a: np.ndarray, b: np.ndarray) -> int:
     return int(np.max(np.abs(ai - bi))) if ai.size else 0
 
 
+def _rounding_ulps(got, exact, scale) -> float:
+    """Max |got - exact| in ULPs of the float32 operand scale."""
+    spacing = np.spacing(np.asarray(scale, np.float32)).astype(np.float64)
+    return float(np.max(np.abs(np.asarray(got, np.float64) - exact) / spacing))
+
+
 def _rand(n, seed):
     rng = np.random.default_rng(seed)
     return rng.uniform(-2, 2, n).astype(np.float32)
@@ -33,17 +43,21 @@ def _rand(n, seed):
 @pytest.mark.parametrize("n", SIZES)
 def test_axpy_ulp(n):
     dst, src = _rand(n, 1), _rand(n, 2)
-    got = np.asarray(K.axpy(dst, src, 1.5, use_pallas=True))
-    want = np.asarray(K.axpy_reference(dst, src, 1.5))
-    assert _ulp_diff(got, want) <= 1, f"n={n}"
+    got = np.asarray(K.axpy(dst, src, 1.5))
+    prod = src.astype(np.float64) * 1.5
+    exact = dst + prod
+    # two roundings: the product and the sum
+    assert _rounding_ulps(got, exact, np.abs(dst) + np.abs(prod)) <= 1.0, f"n={n}"
 
 
 @pytest.mark.parametrize("n", SIZES)
 def test_axpy_windowed_ulp(n):
     dst, src, win = _rand(n, 3), _rand(n, 4), _rand(n, 5)
-    got = np.asarray(K.axpy_windowed(dst, src, win, 0.75, use_pallas=True))
-    want = np.asarray(K.axpy_windowed_reference(dst, src, win, 0.75))
-    assert _ulp_diff(got, want) <= 1, f"n={n}"
+    got = np.asarray(K.axpy_windowed(dst, src, win, 0.75))
+    prod = src.astype(np.float64) * win * 0.75
+    exact = dst + prod
+    # three roundings: two products and the sum
+    assert _rounding_ulps(got, exact, np.abs(dst) + np.abs(prod)) <= 1.5, f"n={n}"
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -51,9 +65,13 @@ def test_normalize_and_clear_ulp(n):
     acc = _rand(n, 6)
     norm = np.abs(_rand(n, 7))
     norm[::5] = 0.0  # exercise the eps guard
-    got, cleared = K.normalize_and_clear(acc, norm, eps=1e-8, use_pallas=True)
-    want, _ = K.normalize_and_clear_reference(acc, norm, 1e-8)
-    assert _ulp_diff(np.asarray(got), np.asarray(want)) <= 1, f"n={n}"
+    got, cleared = K.normalize_and_clear(acc, norm, eps=1e-8)
+    want = acc / np.maximum(norm, np.float32(1e-8))
+    # The CPU divides with correct rounding. On the GPU the divide is PTX
+    # div.full.f32, up to 2 ULP from the exact quotient (so up to 3 from
+    # numpy's correctly rounded one).
+    limit = 3 if jax.default_backend() == "gpu" else 1
+    assert _ulp_diff(np.asarray(got), want) <= limit, f"n={n}"
     assert np.all(np.asarray(cleared) == 0.0)
 
 
@@ -93,23 +111,22 @@ def test_empty_and_mismatch():
 
 
 def test_dispatch_info():
+    import jax
+
     info = K.kernel_dispatch_info()
-    assert info["backend"] in ("cpu", "tpu")
-    assert 1 <= info["num_devices"] <= 64
-    assert info["vpu_tile"] == (8, 128)
+    assert info == {
+        "platform": jax.devices()[0].platform,
+        "device_kind": jax.devices()[0].device_kind,
+        "num_devices": len(jax.devices()),
+    }
     K.print_kernel_dispatch_info()
 
 
-def test_size_dispatch():
-    """Auto-dispatch (reference analog: HWY_DYNAMIC_DISPATCH, kernels.cc:42-52):
-    None routes small arrays to the jnp form (and everything off-TPU), while
-    the forced paths agree within 1 ULP either way."""
-    assert K.kernel_dispatch_info()["min_pallas_n"] == K.pallas_min_n()
-    # Off-TPU auto must never pick interpreted Pallas.
-    assert not K._dispatch_pallas(1 << 24, None)
-    assert K._dispatch_pallas(123, True)
-    assert not K._dispatch_pallas(1 << 24, False)
-    dst, src = _rand(100, 8), _rand(100, 9)
-    auto = np.asarray(K.axpy(dst, src, 1.5))
-    forced = np.asarray(K.axpy(dst, src, 1.5, use_pallas=True))
-    assert _ulp_diff(auto, forced) <= 1
+def test_normalize_and_clear_mismatch_and_empty():
+    """The drain pass validates shapes like the axpy pair and passes an
+    empty ring through unchanged."""
+    with pytest.raises(ValueError):
+        K.normalize_and_clear(np.zeros(3, np.float32), np.ones(4, np.float32))
+    out, cleared = K.normalize_and_clear(np.zeros(0, np.float32),
+                                         np.zeros(0, np.float32))
+    assert out.size == 0 and cleared.size == 0

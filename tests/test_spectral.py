@@ -310,8 +310,8 @@ def test_round_trip_complex_response_consistency():
 
 def test_packed_protocol_matches_complex():
     """fn.packed(re, im) on split planes equals fn(re + i*im) for every op
-    that advertises the packed protocol (the TPU tiled path uses it to skip
-    complex64 interleave)."""
+    that advertises the packed protocol (the sharded and streaming matmul
+    paths use it to skip complex64 interleave)."""
     rng = np.random.default_rng(26)
     K = 257
     nm = rng.uniform(0, 0.2, K).astype(np.float32)

@@ -51,7 +51,7 @@ def test_streaming_center_rejected():
 
 def test_streaming_matmul_backend_packed_path():
     """Forcing the MATMUL backend exercises the packed tiled round-trip
-    inside the scan (the TPU lowering) on CPU; output must match the XLA
+    inside the scan on CPU; output must match the XLA
     route within the matmul-DFT tolerance and keep block-size invariance."""
     from crlot_tpu.core.types import FftBackend, FftPrecision
 
@@ -299,7 +299,7 @@ def _csig(c, t, seed=0):
     (1024, 256, 8192, 4),   # headline config
     (1024, 256, 8192, 1),   # single-chunk stream (head+tail in one chunk)
     (512, 128, 4096, 3),
-    (256, 64, 1280, 3),     # hop < 128: newly supported via blocked_group_for
+    (256, 64, 1280, 3),     # hop < 128
     (1024, 64, 4096, 3),
 ])
 def test_blocked_streamer_identity_bitexact_vs_oneshot(n, hop, s, k):
@@ -324,9 +324,7 @@ def test_blocked_streamer_eq_response():
     one-shot (mesh-independent op shapes); the interior matches within
     ~2 ULP on CPU, where the backend's within-row dot reduction order
     varies with the matmul batch size (chunk rows vs whole-stream rows —
-    the documented CPU caveat; the MXU's fixed row tiling is
-    batch-independent, asserted on-device by the bench suite's
-    stream_blocked_vs_oneshot_bitexact gate)."""
+    the documented CPU caveat; chip_smoke.py checks the GPU)."""
     import crlot_tpu.spectral as sp
 
     cfg = StftConfig(
@@ -431,6 +429,7 @@ def test_blocked_group_for_gate():
     assert blocked_group_for(1024, 64) == 2
     assert composed_block_supported(256, 64)
     assert not composed_block_supported(1024, 192)   # hop does not divide N
-    assert not composed_block_supported(1000, 250)   # no lane-aligning G
+    assert blocked_group_for(1000, 250) == 2         # any hop dividing N
+    assert blocked_group_for(1024, 32) == 2
     assert not composed_block_supported(1024, 1024)  # no overlap (R < 2)
     assert not composed_block_supported(8192, 512)   # beyond MAX_MATMUL_NFFT

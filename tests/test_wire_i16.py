@@ -40,8 +40,7 @@ def _snr_db(ref, got):
 @pytest.mark.parametrize("tier", ["int8x2", "int8x1"])
 def test_identity_interior_snr(tier):
     """Identity round-trip on wire samples: the int16 quantization noise
-    floor (~98 dB) dominates both tiers (measured 95.4 dB on TPU and CPU,
-    DESIGN.md r5 postscript)."""
+    floor (~98 dB) dominates both tiers."""
     x_f, x_i16 = _wire_signal(48000)
     y = i16_round_trip(x_i16, CFG, tier=tier, emit_i16=False)
     edge = CFG.frame_size - CFG.hop_size
